@@ -1,0 +1,180 @@
+"""Tile binning: gaussians -> per-tile contiguous, depth-ordered pair ranges.
+
+  1. stable depth argsort of the gaussians, front to back, invalid last;
+  2. per gaussian, its clamped tile span [tx0, tx1] x [ty0, ty1];
+  3. exclusive prefix sum of pair counts -> each gaussian's slot offset;
+     overflow drops WHOLE gaussians far-to-near, so per-tile ranges stay
+     exact;
+  4. every pair slot finds its gaussian's depth rank by binary search over
+     the offsets and decodes its tile id;
+  5. one stable sort by tile id groups the pairs per tile and keeps depth
+     order within each tile;
+  6. per-tile [start, count) and per-group starts by binary search of the
+     sorted keys;
+  7. gather the records into pair order, feature-major (16, MP), with
+     means and bboxes in the owning tile's local pixel frame.
+
+The pair pool is ``round_up(pairs_per_gaussian * N, chunk_size)`` slots plus
+one trailing chunk of sentinel-keyed slots, as in the JAX package. Above 4M
+slots the JAX package also rounds the pool up to whole gather slabs, a TPU
+memory workaround this port does not copy, so there its ``MP`` may exceed
+the port's by sentinel slots only; every emitted pair, range and count is
+the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from intro_to_gaussian_splatting_tpu_torch.config import RasterizerConfig
+from intro_to_gaussian_splatting_tpu_torch.ops import projection as P
+from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
+    ProjectedGaussians,
+    pack_records,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileBins:
+    pair_records: torch.Tensor  # (NUM_REC_ROWS, MP) f32, feature-major,
+    #                             tile-grouped, means/bboxes TILE-LOCAL,
+    #                             REC_TILE row = owning tile id
+    pair_rank: torch.Tensor     # (MP,) int32 depth rank per pair
+    pair_valid: torch.Tensor    # (MP,) bool
+    tile_starts: torch.Tensor   # (NT,) int32 first pair of each tile
+    tile_counts: torch.Tensor   # (NT,) int32
+    group_starts: torch.Tensor  # (NG + 1,) int32 first pair of each group
+    num_pairs: torch.Tensor     # () int32 total emitted pairs (pre-drop)
+    overflowed: torch.Tensor    # () bool: num_pairs > max_pairs
+
+
+def tile_grid(width: int, height: int, tile_size: int) -> Tuple[int, int]:
+    return (-(-width // tile_size), -(-height // tile_size))
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def num_groups_for(num_tiles: int, config: RasterizerConfig) -> int:
+    """Tile-group count, padded to a whole number of ``groups_per_step``
+    (the JAX package's layout; padded groups are empty and render zeros)."""
+    ng = -(-num_tiles // config.group_tiles)
+    gps = config.groups_per_step
+    return -(-ng // gps) * gps
+
+
+def bin_gaussians(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    config: RasterizerConfig = RasterizerConfig(),
+    max_pairs: Optional[int] = None,
+) -> TileBins:
+    ts = config.tile_size
+    ntx, nty = tile_grid(width, height, ts)
+    num_tiles = ntx * nty
+    n = proj.depth.shape[0]
+    dev = proj.depth.device
+    i64 = torch.int64
+    if max_pairs is None:
+        max_pairs = config.pairs_per_gaussian * n
+    max_pairs = round_up(max_pairs, config.chunk_size)
+    mp_alloc = max_pairs + config.chunk_size   # + one sentinel chunk
+
+    # 1. depth sort, invalid last
+    depth_key = torch.where(proj.valid, proj.depth.detach(), float("inf"))
+    order = torch.argsort(depth_key, stable=True)
+    mean2d = proj.mean2d.detach()[order]
+    radius = proj.radius.detach()[order]
+    valid = proj.valid[order]
+
+    min_x = torch.floor(mean2d[:, 0] - radius)
+    max_x = torch.ceil(mean2d[:, 0] + radius)
+    min_y = torch.floor(mean2d[:, 1] - radius)
+    max_y = torch.ceil(mean2d[:, 1] + radius)
+
+    # 2. tile spans; the reference's inclusive overlap test admits a bbox
+    # touching the first pixel of the next tile
+    if config.compat.inclusive_tile_overlap:
+        tx0 = torch.ceil(min_x / ts).to(torch.int32) - 1
+        ty0 = torch.ceil(min_y / ts).to(torch.int32) - 1
+    else:
+        tx0 = torch.floor(min_x / ts).to(torch.int32)
+        ty0 = torch.floor(min_y / ts).to(torch.int32)
+    tx1 = torch.floor(max_x / ts).to(torch.int32)
+    ty1 = torch.floor(max_y / ts).to(torch.int32)
+    # intersect with the grid; only the outward bound is clamped per side,
+    # so a bbox fully off-screen gets span 0
+    tx0 = torch.clamp(tx0, min=0).to(i64)
+    ty0 = torch.clamp(ty0, min=0).to(i64)
+    tx1 = torch.clamp(tx1, max=ntx - 1).to(i64)
+    ty1 = torch.clamp(ty1, max=nty - 1).to(i64)
+    span_x = torch.clamp(tx1 - tx0 + 1, 0, config.max_span)
+    span_y = torch.clamp(ty1 - ty0 + 1, 0, config.max_span)
+    counts = torch.where(valid, span_x * span_y, 0)
+
+    # 3. slot offsets; the gaussians that fit entirely form a prefix of the
+    # depth order, so the dropped set is a far-to-near suffix
+    ends = torch.cumsum(counts, 0)                              # offsets[1:]
+    starts = ends - counts                                      # offsets[:-1]
+    total = ends[-1]
+    full = ends <= max_pairs
+    total_emit = int(torch.max(torch.where(full, ends, 0)))
+
+    # 4. ragged expand: slot p belongs to depth rank #{i : ends[i] <= p}
+    p = torch.arange(mp_alloc, dtype=i64, device=dev)
+    rank = torch.clamp(torch.searchsorted(ends, p, right=True), 0, n - 1)
+    k = p - starts[rank]
+    sx_span = torch.clamp(span_x[rank], min=1)
+    tile_id = (ty0[rank] + k // sx_span) * ntx + (tx0[rank] + k % sx_span)
+    del k, sx_span
+    gt = config.group_tiles
+    num_groups = num_groups_for(num_tiles, config)
+    # non-emitted slots take a sentinel key past every real tile and group
+    sentinel = num_groups * gt
+    tile_key = torch.where(p < total_emit, tile_id, sentinel)
+    del tile_id, p
+
+    # 5. stable sort by tile keeps depth order within each tile
+    sorted_keys, perm = torch.sort(tile_key, stable=True)
+    del tile_key
+    sorted_rank = rank[perm]
+    del rank, perm
+    pair_valid = sorted_keys < num_tiles
+
+    # 6. per-tile and per-group ranges of the sorted stream
+    tile_bounds = torch.searchsorted(
+        sorted_keys, torch.arange(num_tiles + 1, dtype=i64, device=dev))
+    tile_starts = tile_bounds[:-1]
+    tile_counts = tile_bounds[1:] - tile_starts
+    group_starts = torch.searchsorted(
+        sorted_keys, torch.arange(num_groups + 1, dtype=i64, device=dev) * gt)
+
+    # 7. gather records into pair order (differentiable), feature-major,
+    # then move means/bboxes into the owning tile's local frame, in place
+    # on the gathered copy (one (16, MP) stream is ever allocated)
+    records_rank = pack_records(proj)[:, order]                 # (16, N)
+    pair_records = records_rank[:, sorted_rank]                 # (16, MP)
+    zero = torch.zeros((), dtype=sorted_keys.dtype, device=dev)
+    for rows, origin in (
+            ((P.REC_MEAN_X, P.REC_MIN_X, P.REC_MAX_X), sorted_keys % ntx),
+            ((P.REC_MEAN_Y, P.REC_MIN_Y, P.REC_MAX_Y), sorted_keys // ntx)):
+        shift = (torch.where(pair_valid, origin, zero) * ts).to(torch.float32)
+        for row in rows:
+            pair_records[row] -= shift
+    pair_records[P.REC_TILE] = sorted_keys.to(torch.float32)
+
+    return TileBins(
+        pair_records=pair_records,
+        pair_rank=sorted_rank.to(torch.int32),
+        pair_valid=pair_valid,
+        tile_starts=tile_starts.to(torch.int32),
+        tile_counts=tile_counts.to(torch.int32),
+        group_starts=group_starts.to(torch.int32),
+        num_pairs=total.to(torch.int32),
+        overflowed=total > max_pairs,
+    )

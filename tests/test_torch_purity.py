@@ -1,0 +1,81 @@
+"""The port stands alone: no file of it, nor chip_smoke.py, imports JAX or
+the JAX package; importing every module of it loads no JAX; and
+chip_smoke.py fails, printing no result, where there is no card."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "intro_to_gaussian_splatting_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "intro_to_gaussian_splatting_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_no_file_of_the_port_imports_jax():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(str(p.relative_to(REPO)), m) for p in files
+           for m in _imported_modules(p) if _forbidden(m)]
+    assert bad == []
+    assert _forbidden("intro_to_gaussian_splatting_tpu.ops")
+    assert not _forbidden("intro_to_gaussian_splatting_tpu_torch.ops")
+
+
+def _run(code_or_args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"modules = {modules!r}\n"
+            "for m in modules:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'intro_to_gaussian_splatting_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('imported', len(modules))\n")
+    r = _run(["-c", code], REPO)
+    assert r.returncode == 0, r.stderr
+    assert f"imported {len(modules)}" in r.stdout
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    r = _run([str(REPO / "chip_smoke.py")], REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    # alone in a directory, without the port beside it
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    r = _run([str(alone)], tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,123 @@
+"""Port vs JAX package: the whole render slice on the CPU.
+
+``render_tiled`` (with and without aux), ``render_dense`` and
+``render(backend=...)`` against the JAX package on the same scene, rtol 1e-4
+/ atol 1e-5 as the JAX package's own tiled-vs-dense tests; and
+``gstpu-torch --cpu render`` against ``gstpu --cpu render`` on a scene the
+JAX package writes.
+"""
+
+import numpy as np
+import pytest
+
+from intro_to_gaussian_splatting_tpu import cli as jax_cli
+from intro_to_gaussian_splatting_tpu.config import (
+    CompatConfig,
+    RasterizerConfig,
+)
+from intro_to_gaussian_splatting_tpu.io.synthetic import make_colmap_scene
+from intro_to_gaussian_splatting_tpu.ops.compositing import (
+    render_dense as jax_render_dense,
+)
+from intro_to_gaussian_splatting_tpu.ops.rasterize_pallas import (
+    render_tiled as jax_render_tiled,
+)
+from intro_to_gaussian_splatting_tpu_torch import cli
+from intro_to_gaussian_splatting_tpu_torch.ops.compositing import render_dense
+from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import render_tiled
+from intro_to_gaussian_splatting_tpu_torch.ops.render import render
+from tests.scenes import small_scene
+from tests.test_torch_common import (
+    np_,
+    port_camera,
+    port_config,
+    port_model,
+)
+
+CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _scene(**kw):
+    raw, cam, model = small_scene(**{**dict(n=120, width=40, height=24,
+                                            seed=5), **kw})
+    return cam, model, port_camera(cam), port_model(model)
+
+
+def test_render_auto_and_tiled_match():
+    cam, model, tcam, tmodel = _scene()
+    want = np.asarray(jax_render_tiled(model, cam, CFG, interpret=True))
+    for backend in ("auto", "tiled"):
+        got = render(tmodel, tcam, port_config(CFG), backend=backend)
+        assert got.shape == (24, 40, 3)
+        np.testing.assert_allclose(np_(got), want, **TOL, err_msg=backend)
+    np.testing.assert_allclose(np_(render_tiled(tmodel, tcam,
+                                                port_config(CFG))), want,
+                               **TOL)
+    with pytest.raises(ValueError, match="unknown backend"):
+        render(tmodel, tcam, port_config(CFG), backend="pallas")
+
+
+def test_render_tiled_aux_matches_reference_cpu_compat():
+    # double sigmoid + skipped last partial tile + inclusive overlap
+    cfg = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32,
+                           group_tiles=2, compat=CompatConfig.REFERENCE_CPU)
+    cam, model, tcam, tmodel = _scene(n=100, width=40, height=40, seed=2)
+    want_img, want = jax_render_tiled(model, cam, cfg, return_aux=True,
+                                      interpret=True)
+    got_img, got = render_tiled(tmodel, tcam, port_config(cfg),
+                                return_aux=True)
+    np.testing.assert_allclose(np_(got_img), np.asarray(want_img), **TOL)
+    assert np_(got_img)[32:].max() == 0.0          # the skipped tile row
+    for name in ("depth", "alpha", "transmittance"):
+        np.testing.assert_allclose(np_(got[name]), np.asarray(want[name]),
+                                   **TOL, err_msg=name)
+    for name in ("overflowed", "num_pairs", "visible"):
+        np.testing.assert_array_equal(np_(got[name]), np.asarray(want[name]),
+                                      err_msg=name)
+    np.testing.assert_allclose(np_(got["alpha"] + got["transmittance"]), 1.0,
+                               atol=1e-6)
+
+
+def test_render_dense_matches():
+    cam, model, tcam, tmodel = _scene()
+    want_img, want = jax_render_dense(model, cam, CFG, return_aux=True)
+    got_img, got = render_dense(tmodel, tcam, port_config(CFG),
+                                return_aux=True)
+    np.testing.assert_allclose(np_(got_img), np.asarray(want_img), **TOL)
+    for name in ("depth", "alpha", "transmittance"):
+        np.testing.assert_allclose(np_(got[name]), np.asarray(want[name]),
+                                   **TOL, err_msg=name)
+    np.testing.assert_allclose(
+        np_(render(tmodel, tcam, port_config(CFG), backend="dense")),
+        np.asarray(want_img), **TOL)
+
+
+def _read_ppm(path):
+    with open(path, "rb") as f:
+        assert f.readline() == b"P6\n"
+        w, h = map(int, f.readline().split())
+        assert f.readline() == b"255\n"
+        return np.frombuffer(f.read(), np.uint8).reshape(h, w, 3)
+
+
+def test_cli_render_matches_jax_cli(tmp_path, capsys):
+    scene = str(tmp_path / "scene")
+    make_colmap_scene(scene, num_points=300, num_cameras=2, width=64,
+                      height=48, seed=5)
+    assert cli.main(["info", scene]) == 0
+    assert jax_cli.main(["info", scene]) == 0
+    port_info, jax_info = capsys.readouterr().out.split("model dir:")[1:]
+    assert port_info == jax_info
+
+    out, ref = str(tmp_path / "port.ppm"), str(tmp_path / "jax.ppm")
+    assert cli.main(["--cpu", "render", scene, "--image-index", "1",
+                     "-o", out]) == 0
+    assert "device=cpu" in capsys.readouterr().out
+    assert jax_cli.main(["--cpu", "render", scene, "--image-index", "1",
+                         "-o", ref]) == 0
+    got, want = _read_ppm(out), _read_ppm(ref)
+    assert got.shape == (48, 64, 3)
+    # 8-bit quantization of images equal to 1e-4 may differ by one level
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert got.any()
