@@ -15,7 +15,10 @@ they mean:
   * ``accum_precision``: ignored. The CUDA kernel always accumulates in plain
     f32 arithmetic, which is what ``"highest"`` means on the TPU.
 
-``TrainConfig`` comes with the training slice.
+``TrainConfig`` has every field and default of the JAX package's. This
+slice trains one camera per step through the fused loss: ``camera_batch``
+> 1 (batched steps) and ``fused_loss=False`` with ``ssim_weight`` > 0 (the
+split loss, kernels B4a-c) raise in the trainer until their slices land.
 """
 
 from __future__ import annotations
@@ -90,3 +93,39 @@ class RasterizerConfig:
             "alpha must stay < 1 so transmittance is monotone"
         assert self.accum_precision in ("split3", "highest", "default")
         assert self.groups_per_step >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """3DGS optimization hyperparameters (the 3DGS paper's / gsplat's
+    values, as in the JAX package)."""
+
+    iterations: int = 7000
+    lr_means: float = 1.6e-4        # scaled by scene extent
+    lr_means_final: float = 1.6e-6
+    lr_scales: float = 5e-3
+    lr_quats: float = 1e-3
+    lr_opacity: float = 5e-2
+    lr_sh0: float = 2.5e-3
+    lr_shN: float = 2.5e-3 / 20.0
+    ssim_weight: float = 0.2        # loss = (1-w)*L1 + w*(1-SSIM)
+    # True: the fused tile-space L1+SSIM value and gradient (kernel B3);
+    # False: the split path (tile L1 + untile + SSIM), a later slice
+    fused_loss: bool = True
+    sh_degree: int = 3
+    sh_degree_interval: int = 1000  # raise active SH degree every N steps
+    # densification
+    densify_start: int = 500
+    densify_stop: int = 15000
+    densify_interval: int = 100
+    densify_grad_threshold: float = 2e-4
+    densify_scale_threshold: float = 0.01  # x scene extent: split vs clone
+    prune_opacity_threshold: float = 5e-3
+    opacity_reset_interval: int = 3000
+    capacity_multiplier: float = 4.0  # fixed pool = multiplier * init count
+    # cameras averaged per optimizer step; only 1 in this slice
+    camera_batch: int = 1
+    seed: int = 0
+    # periodic full-state saves (checkpointing comes with a later slice)
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3

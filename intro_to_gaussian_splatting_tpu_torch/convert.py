@@ -1,9 +1,9 @@
-"""Carry a model or a camera across from numpy arrays.
+"""Carry a model, a camera or a training state across from numpy arrays.
 
 The JAX package's pytrees become numpy with ``jax.tree.map(np.asarray, x)``;
 these functions take such numpy leaves (never JAX arrays or JAX types) and
-build the port's counterparts, so weights and poses move between the two
-packages without either importing the other.
+build the port's counterparts, so weights, poses and a training run's
+state move between the two packages without either importing the other.
 """
 
 from __future__ import annotations
@@ -15,9 +15,15 @@ import torch
 
 from intro_to_gaussian_splatting_tpu_torch.device import resolve_device
 from intro_to_gaussian_splatting_tpu_torch.models.camera import Camera
-from intro_to_gaussian_splatting_tpu_torch.models.gaussians import GaussianModel
-
-PARAM_NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
+from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
+    PARAM_NAMES,
+    GaussianModel,
+)
+from intro_to_gaussian_splatting_tpu_torch.train.densify import DensifyState
+from intro_to_gaussian_splatting_tpu_torch.train.trainer import (
+    AdamGroup,
+    OptState,
+)
 CAMERA_TENSORS = ("world2view", "full_proj", "fx", "fy", "tan_fovx",
                   "tan_fovy", "cam_center")
 
@@ -50,3 +56,42 @@ def camera_from_numpy(fields: Mapping[str, Any],
         for name in CAMERA_TENSORS}
     return Camera(**tensors, width=int(fields["width"]),
                   height=int(fields["height"]))
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def densify_state_from_numpy(fields: Mapping[str, Any],
+                             device: str | torch.device | None = None
+                             ) -> DensifyState:
+    """``fields`` holds ``grad_accum`` (N,) and ``count`` (N,)
+    (``dataclasses.asdict`` of a numpy-leaved DensifyState)."""
+    device = resolve_device(device)
+    return DensifyState(
+        grad_accum=_tensor(fields["grad_accum"], np.float32, device),
+        count=_tensor(fields["count"], np.int32, device))
+
+
+def optimizer_state_from_numpy(opt_state: Any,
+                               device: str | torch.device | None = None
+                               ) -> OptState:
+    """The port's Adam state from the JAX package's optimizer state with
+    numpy leaves: optax's ``multi_transform`` state, one masked inner state
+    per parameter group, each a chain whose first member is Adam's
+    (``count``, ``mu``, ``nu``) and, for the means, whose second is the
+    learning-rate schedule's ``count``. Read by attribute and key names
+    only, so nothing of optax or JAX is imported."""
+    device = resolve_device(device)
+    state = {}
+    for name in PARAM_NAMES:
+        chain = opt_state.inner_states[name].inner_state
+        adam = chain[0]
+        schedule = chain[1] if name == "means" else None
+        state[name] = AdamGroup(
+            count=_tensor(adam.count, np.int32, device),
+            mu=_tensor(adam.mu[name], np.float32, device),
+            nu=_tensor(adam.nu[name], np.float32, device),
+            schedule_count=(None if schedule is None
+                            else _tensor(schedule.count, np.int32, device)))
+    return state

@@ -22,6 +22,8 @@ from torch import nn
 from intro_to_gaussian_splatting_tpu_torch.device import resolve_device
 from intro_to_gaussian_splatting_tpu_torch.models.sh import rgb_to_sh
 
+PARAM_NAMES = ("means", "log_scales", "quats", "opacity_logits", "sh")
+
 
 class GaussianModel(nn.Module):
     def __init__(self, means: torch.Tensor, log_scales: torch.Tensor,

@@ -14,6 +14,16 @@
   7. gather the records into pair order, feature-major (16, MP), with
      means and bboxes in the owning tile's local pixel frame.
 
+The gather's gradient sums each gaussian's pair gradients. PyTorch's own
+indexing backward would scatter-add them with atomics on the card, in an
+order that changes from run to run; ``_GatherPairs`` instead does what the
+JAX package's ``_gather_pairs_fm`` VJP does: it puts the pair gradients
+back in emission order, where each gaussian's pairs are one contiguous
+block, and takes each block's sum as a difference of a two-level running
+sum. Every step is a gather, a scatter to distinct slots, or a scan over
+rows of a 2-D tensor, so the gradient is the same bit for bit from run to
+run.
+
 The pair pool is ``round_up(pairs_per_gaussian * N, chunk_size)`` slots plus
 one trailing chunk of sentinel-keyed slots, as in the JAX package. Above 4M
 slots the JAX package also rounds the pool up to whole gather slabs, a TPU
@@ -65,6 +75,79 @@ def num_groups_for(num_tiles: int, config: RasterizerConfig) -> int:
     ng = -(-num_tiles // config.group_tiles)
     gps = config.groups_per_step
     return -(-ng // gps) * gps
+
+
+
+_CUM_BLOCK = 512
+
+
+def _segment_sums(g_em: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """Sums of the column blocks [lo[i], hi[i]) of ``g_em`` (F, MP): (F, N).
+
+    A two-level running sum, as the JAX package's gather VJP takes it:
+    inclusive sums inside blocks of 512 columns plus an exclusive sum of
+    the block totals, so a segment inside one block sees only that block's
+    rounding. Both scans run along the rows of 2-D tensors, which PyTorch
+    scans one row per thread block in a fixed order (its 1-D float scan on
+    the card is not run-to-run deterministic).
+    """
+    f, mp = g_em.shape
+    b = _CUM_BLOCK
+    nb = -(-mp // b)
+    gp = torch.nn.functional.pad(g_em, (0, (nb + 1) * b - mp))
+    fine = torch.cumsum(gp.reshape(f * (nb + 1), b), dim=1).reshape(
+        f, (nb + 1) * b)
+    totals = fine[:, b - 1::b]                               # (F, NB+1)
+    coarse = torch.cumsum(totals, dim=1) - totals            # exclusive
+
+    def excl_at(idx):
+        # the exclusive in-block prefix at column idx: 0 on a block
+        # boundary, else the inclusive prefix at idx - 1
+        v = fine[:, torch.clamp(idx - 1, min=0)]
+        return torch.where((idx % b == 0)[None, :], 0.0, v)
+
+    return ((coarse[:, hi // b] - coarse[:, lo // b])
+            + (excl_at(hi) - excl_at(lo)))
+
+
+class _GatherPairs(torch.autograd.Function):
+    """records_rank (16, N) -> (16, MP) in sorted pair order, localized to
+    each pair's tile; the backward sums pair gradients per gaussian."""
+
+    @staticmethod
+    def forward(ctx, records_rank, sorted_rank, perm, sorted_keys, valid,
+                lo, hi, ntx, ts):
+        out = records_rank[:, sorted_rank]
+        zero = torch.zeros((), dtype=sorted_keys.dtype,
+                           device=sorted_keys.device)
+        for rows, origin in (
+                ((P.REC_MEAN_X, P.REC_MIN_X, P.REC_MAX_X), sorted_keys % ntx),
+                ((P.REC_MEAN_Y, P.REC_MIN_Y, P.REC_MAX_Y),
+                 sorted_keys // ntx)):
+            shift = (torch.where(valid, origin, zero) * ts).to(torch.float32)
+            for row in rows:
+                out[row] -= shift
+        out[P.REC_TILE] = sorted_keys.to(torch.float32)
+        ctx.save_for_backward(perm, lo, hi)
+        ctx.n = records_rank.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, lo, hi = ctx.saved_tensors
+        # only these rows carry pair gradients back to the gaussians
+        rows = torch.as_tensor(P.GRAD_ROWS, device=g.device)
+        g_rows = g[rows]                                     # (10, MP)
+        # back to emission order: sorted slot i came from emission slot
+        # perm[i]; distinct targets, so the scatter is exact
+        g_em = torch.empty_like(g_rows)
+        g_em[:, perm] = g_rows
+        del g_rows
+        d = torch.zeros((P.NUM_REC_ROWS, ctx.n), dtype=g.dtype,
+                        device=g.device)
+        d[rows] = _segment_sums(g_em, lo, hi)
+        return d, None, None, None, None, None, None, None, None
 
 
 def bin_gaussians(
@@ -143,7 +226,7 @@ def bin_gaussians(
     sorted_keys, perm = torch.sort(tile_key, stable=True)
     del tile_key
     sorted_rank = rank[perm]
-    del rank, perm
+    del rank
     pair_valid = sorted_keys < num_tiles
 
     # 6. per-tile and per-group ranges of the sorted stream
@@ -155,18 +238,15 @@ def bin_gaussians(
         sorted_keys, torch.arange(num_groups + 1, dtype=i64, device=dev) * gt)
 
     # 7. gather records into pair order (differentiable), feature-major,
-    # then move means/bboxes into the owning tile's local frame, in place
-    # on the gathered copy (one (16, MP) stream is ever allocated)
+    # with means/bboxes in the owning tile's local frame
     records_rank = pack_records(proj)[:, order]                 # (16, N)
-    pair_records = records_rank[:, sorted_rank]                 # (16, MP)
-    zero = torch.zeros((), dtype=sorted_keys.dtype, device=dev)
-    for rows, origin in (
-            ((P.REC_MEAN_X, P.REC_MIN_X, P.REC_MAX_X), sorted_keys % ntx),
-            ((P.REC_MEAN_Y, P.REC_MIN_Y, P.REC_MAX_Y), sorted_keys // ntx)):
-        shift = (torch.where(pair_valid, origin, zero) * ts).to(torch.float32)
-        for row in rows:
-            pair_records[row] -= shift
-    pair_records[P.REC_TILE] = sorted_keys.to(torch.float32)
+    total_t = torch.as_tensor(total_emit, device=dev)
+    lo = torch.minimum(starts, total_t)
+    hi = torch.minimum(ends, total_t)
+    pair_records = _GatherPairs.apply(records_rank, sorted_rank, perm,
+                                      sorted_keys, pair_valid, lo, hi, ntx,
+                                      ts)
+    del perm
 
     return TileBins(
         pair_records=pair_records,

@@ -47,6 +47,10 @@ REC_ONE = 15
 PAYLOAD_START = 11
 NUM_PAYLOAD = 5
 NUM_REC_ROWS = 16
+# Rows that carry a gradient back from the rasterizer; its backward (B2)
+# writes exact zeros in the bbox, tile-id and constant-one rows.
+GRAD_ROWS = (REC_MEAN_X, REC_MEAN_Y, REC_CONIC_A, REC_CONIC_B, REC_CONIC_C,
+             REC_OPACITY, REC_COLOR_R, REC_COLOR_G, REC_COLOR_B, REC_DEPTH)
 
 
 @dataclasses.dataclass(frozen=True)

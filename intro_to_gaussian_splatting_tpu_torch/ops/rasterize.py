@@ -1,9 +1,10 @@
 """Tiled rasterizer: project -> bin -> rasterize (B1) -> untile (B5).
 
-``rasterize_pairs`` launches kernel B1 (csrc/rasterize_fwd.cu) for tensors
-on the card and runs the plain version, ``rasterize_pairs_reference``, for
-tensors on the CPU. Its gradient (kernel B2) comes with the training slice;
-until then ``backward`` raises rather than return a wrong gradient.
+``rasterize_pairs`` is an ``autograd.Function``. For tensors on the card
+its forward launches kernel B1 (csrc/rasterize_fwd.cu) and its backward
+kernel B2 (csrc/rasterize_bwd.cu); for tensors on the CPU they run the plain
+versions, ``rasterize_pairs_reference`` and
+``rasterize_pairs_backward_reference``.
 
 Tile output is (NG, 5, GT, ts*ts) with channels [r, g, b, depth, alpha], in
 the JAX package's layout; tile slots past the last real tile are zeros.
@@ -51,6 +52,13 @@ RASTERIZE_FWD = CudaKernel(RASTERIZE_SOURCE, "rasterize_fwd", [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p,
 ])
+RASTERIZE_BWD_SOURCE = KernelSource("rasterize_bwd", ("-fmad=false",))
+RASTERIZE_BWD = CudaKernel(RASTERIZE_BWD_SOURCE, "rasterize_bwd", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+])
 
 
 def _check_pairs(records, tile_starts, tile_counts, num_groups, config):
@@ -62,6 +70,51 @@ def _check_pairs(records, tile_starts, tile_counts, num_groups, config):
         raise ValueError("tile ranges do not fit the group layout")
     if config.tile_size ** 2 > 1024:
         raise ValueError("tile_size^2 must fit one CUDA block (<= 1024)")
+
+
+def _alpha_terms(rec, px, py, config):
+    """Per-(pair, pixel) alpha of ``rec`` (16, na) rows against the tile's
+    local pixel coordinates: (dx, dy, weight, alpha_raw, a), each (na, pix),
+    with the kernels' arithmetic in their order."""
+    def col(row):
+        return rec[row][:, None]
+
+    dx = px - col(P.REC_MEAN_X)
+    dy = py - col(P.REC_MEAN_Y)
+    q = (col(P.REC_CONIC_A) * dx * dx
+         + 2.0 * col(P.REC_CONIC_B) * dx * dy
+         + col(P.REC_CONIC_C) * dy * dy)
+    weight = torch.exp(-0.5 * q)
+    alpha_raw = col(P.REC_OPACITY) * weight
+    a = torch.clamp(alpha_raw, 0.0, config.alpha_clamp)
+    if config.alpha_min > 0.0:
+        a = torch.where(alpha_raw >= config.alpha_min, a, 0.0)
+    if config.compat.pixel_bbox_test:
+        inb = ((px >= col(P.REC_MIN_X)) & (px <= col(P.REC_MAX_X))
+               & (py >= col(P.REC_MIN_Y)) & (py <= col(P.REC_MAX_Y)))
+        a = torch.where(inb, a, 0.0)
+    return dx, dy, weight, alpha_raw, a
+
+
+def _depth_rank_schedule(tile_starts, tile_counts):
+    """Tiles sorted by pair count, largest first, so that the tiles with a
+    pair of depth rank k are a prefix: (order, starts in that order,
+    max_count, active[k] = number of tiles with more than k pairs)."""
+    counts_host = tile_counts.cpu().numpy().astype(np.int64)
+    order_host = np.argsort(-counts_host, kind="stable")
+    sorted_counts = counts_host[order_host]
+    order = torch.as_tensor(order_host, device=tile_starts.device)
+    starts = tile_starts.to(torch.int64)[order]
+    max_count = int(sorted_counts[0]) if len(sorted_counts) else 0
+    active = np.searchsorted(-sorted_counts, -np.arange(max_count),
+                             side="left")
+    return order, starts, max_count, active
+
+
+def _tile_rows(tiles, order):
+    """(NG, C, GT, pix) -> (C, NT, pix), tiles in ``order``."""
+    ng, c, gt, pix = tiles.shape
+    return tiles.permute(1, 0, 2, 3).reshape(c, ng * gt, pix)[:, order]
 
 
 def rasterize_pairs_reference(records, tile_starts, tile_counts,
@@ -85,16 +138,8 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     lane = torch.arange(pix, device=dev)
     px = (lane % ts).to(torch.float32)[None, :]
     py = (lane // ts).to(torch.float32)[None, :]
-
-    counts_host = tile_counts.cpu().numpy().astype(np.int64)
-    order_host = np.argsort(-counts_host, kind="stable")
-    sorted_counts = counts_host[order_host]
-    order = torch.as_tensor(order_host, device=dev)
-    starts = tile_starts.to(torch.int64)[order]
-    max_count = int(sorted_counts[0]) if nt else 0
-    # active[k] = number of tiles with more than k pairs
-    active = np.searchsorted(-sorted_counts, -np.arange(max_count),
-                             side="left")
+    order, starts, max_count, active = _depth_rank_schedule(tile_starts,
+                                                            tile_counts)
 
     T = torch.ones((nt, pix), device=dev)
     alive = torch.ones((nt, pix), dtype=torch.bool, device=dev)
@@ -103,24 +148,7 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     for k in range(max_count):
         na = int(active[k])
         rec = records[:, starts[:na] + k]                  # (16, na)
-
-        def col(row):
-            return rec[row][:, None]
-
-        dx = px - col(P.REC_MEAN_X)
-        dy = py - col(P.REC_MEAN_Y)
-        q = (col(P.REC_CONIC_A) * dx * dx
-             + 2.0 * col(P.REC_CONIC_B) * dx * dy
-             + col(P.REC_CONIC_C) * dy * dy)
-        weight = torch.exp(-0.5 * q)
-        alpha_raw = col(P.REC_OPACITY) * weight
-        a = torch.clamp(alpha_raw, 0.0, config.alpha_clamp)
-        if config.alpha_min > 0.0:
-            a = torch.where(alpha_raw >= config.alpha_min, a, 0.0)
-        if config.compat.pixel_bbox_test:
-            inb = ((px >= col(P.REC_MIN_X)) & (px <= col(P.REC_MAX_X))
-                   & (py >= col(P.REC_MIN_Y)) & (py <= col(P.REC_MAX_Y)))
-            a = torch.where(inb, a, 0.0)
+        _, _, _, _, a = _alpha_terms(rec, px, py, config)
         t_prev = T[:na]
         live = alive[:na]
         if count_evaluations:
@@ -129,7 +157,7 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
         keep = live & (t_incl >= config.t_threshold)
         w = t_prev * a
         for c in range(OUT_CHANNELS):
-            contrib = col(P.PAYLOAD_START + c) * w
+            contrib = rec[P.PAYLOAD_START + c][:, None] * w
             acc[c, :na] = acc[c, :na] + torch.where(keep, contrib, 0.0)
         T[:na] = torch.where(keep, t_incl, t_prev)
         alive[:na] = keep
@@ -143,9 +171,82 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     return out
 
 
-def _rasterize_fwd_cuda(records, tile_starts, tile_counts, num_groups,
-                        config):
+def rasterize_pairs_backward_reference(records, tile_starts, tile_counts,
+                                       out, g_tile, num_groups: int,
+                                       config: RasterizerConfig):
+    """Plain PyTorch version of kernel B2: the gradient of
+    ``rasterize_pairs`` with respect to the (16, MP) records, from the
+    forward output ``out`` and its cotangent ``g_tile``, both
+    (NG, 5, GT, ts*ts).
+
+    Steps over the depth rank k as ``rasterize_pairs_reference`` does, with
+    B2's per-pixel arithmetic in B2's order; each pair's terms are summed
+    over its tile's pixels. Rows 6-10 and 15, pairs after their pixels'
+    exits and the slots past the last tile are exactly 0.
+    """
     _check_pairs(records, tile_starts, tile_counts, num_groups, config)
+    ts = config.tile_size
+    pix = ts * ts
+    dev = records.device
+    nt = tile_starts.shape[0]
+    lane = torch.arange(pix, device=dev)
+    px = (lane % ts).to(torch.float32)[None, :]
+    py = (lane // ts).to(torch.float32)[None, :]
+    order, starts, max_count, active = _depth_rank_schedule(tile_starts,
+                                                            tile_counts)
+    gch = _tile_rows(g_tile, order)                       # (5, NT, pix)
+    u_all = torch.zeros((nt, pix), device=dev)
+    for c, oc in enumerate(_tile_rows(out, order)):
+        u_all = u_all + gch[c] * oc
+
+    T = torch.ones((nt, pix), device=dev)
+    alive = torch.ones((nt, pix), dtype=torch.bool, device=dev)
+    prefix = torch.zeros((nt, pix), device=dev)
+    drec = torch.zeros_like(records)
+    for k in range(max_count):
+        na = int(active[k])
+        cols = starts[:na] + k
+        rec = records[:, cols]                             # (16, na)
+
+        def col(row):
+            return rec[row][:, None]
+
+        dx, dy, weight, alpha_raw, a = _alpha_terms(rec, px, py, config)
+        t_prev = T[:na]
+        g = gch[:, :na]
+        one_minus = 1.0 - a
+        t_incl = t_prev * one_minus
+        keep = alive[:na] & (t_incl >= config.t_threshold)
+        w = t_prev * a
+        gc = torch.zeros_like(w)
+        for c in range(OUT_CHANNELS):
+            gc = gc + col(P.PAYLOAD_START + c) * g[c]
+        prefix[:na] = prefix[:na] + torch.where(keep, gc * w, 0.0)
+        suffix = u_all[:na] - prefix[:na]
+        da = gc * t_prev - suffix / one_minus
+        passthrough = ((a > 0.0) & (alpha_raw < config.alpha_clamp)).to(
+            torch.float32)
+        dalpha = da * passthrough
+        op = col(P.REC_OPACITY)
+        ca, cb, cc = (col(P.REC_CONIC_A), col(P.REC_CONIC_B),
+                      col(P.REC_CONIC_C))
+        dq = dalpha * op * weight * (-0.5)
+        terms = (
+            dq * (-(2.0 * ca * dx + 2.0 * cb * dy)),
+            dq * (-(2.0 * cc * dy + 2.0 * cb * dx)),
+            dq * dx * dx,
+            dq * 2.0 * dx * dy,
+            dq * dy * dy,
+            dalpha * weight,
+        ) + tuple(w * g[c] for c in range(4))
+        for row, term in zip(P.GRAD_ROWS, terms):
+            drec[row, cols] = torch.where(keep, term, 0.0).sum(dim=1)
+        T[:na] = torch.where(keep, t_incl, t_prev)
+        alive[:na] = keep
+    return drec
+
+
+def _check_cuda_inputs(records, tile_starts, tile_counts):
     dev = records.device
     for name, t, dtype in (("records", records, torch.float32),
                            ("tile_starts", tile_starts, torch.int32),
@@ -154,12 +255,42 @@ def _rasterize_fwd_cuda(records, tile_starts, tile_counts, num_groups,
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
                              f"{dev}")
     if tile_starts.numel():
-        # the kernel reads records[:, start:start + count] unchecked
+        # the kernels read records[:, start:start + count] unchecked
         lo, hi = torch.stack([
             torch.minimum(tile_starts, tile_counts).min().long(),
             (tile_starts.long() + tile_counts).max()]).tolist()
         if lo < 0 or hi > records.shape[1]:
             raise ValueError("tile ranges fall outside the record stream")
+
+
+def _rasterize_bwd_cuda(records, tile_starts, tile_counts, out, g_tile,
+                        num_groups, config):
+    _check_pairs(records, tile_starts, tile_counts, num_groups, config)
+    _check_cuda_inputs(records, tile_starts, tile_counts)
+    ts = config.tile_size
+    shape = (num_groups, OUT_CHANNELS, config.group_tiles, ts * ts)
+    for name, t in (("out", out), ("g_tile", g_tile)):
+        if (t.shape != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != records.device):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} "
+                             f"tensor on {records.device}")
+    drec = torch.empty_like(records)
+    dev = records.device
+    RASTERIZE_BWD.launch(
+        records.data_ptr(), records.shape[1], tile_starts.data_ptr(),
+        tile_counts.data_ptr(), tile_starts.shape[0], config.group_tiles, ts,
+        config.alpha_clamp, config.alpha_min, config.t_threshold,
+        int(config.compat.pixel_bbox_test), out.data_ptr(), g_tile.data_ptr(),
+        drec.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return drec
+
+
+def _rasterize_fwd_cuda(records, tile_starts, tile_counts, num_groups,
+                        config):
+    _check_pairs(records, tile_starts, tile_counts, num_groups, config)
+    _check_cuda_inputs(records, tile_starts, tile_counts)
+    dev = records.device
     ts = config.tile_size
     gt = config.group_tiles
     out = torch.empty((num_groups, OUT_CHANNELS, gt, ts * ts),
@@ -177,14 +308,26 @@ class _RasterizePairs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, records, tile_starts, tile_counts, num_groups, config):
         if records.is_cuda:
-            return _rasterize_fwd_cuda(records, tile_starts, tile_counts,
-                                       num_groups, config)
-        return rasterize_pairs_reference(records, tile_starts, tile_counts,
-                                         num_groups, config)
+            out = _rasterize_fwd_cuda(records, tile_starts, tile_counts,
+                                      num_groups, config)
+        else:
+            out = rasterize_pairs_reference(records, tile_starts,
+                                            tile_counts, num_groups, config)
+        ctx.save_for_backward(records, tile_starts, tile_counts, out)
+        ctx.num_groups = num_groups
+        ctx.config = config
+        return out
 
     @staticmethod
     def backward(ctx, g_tile):
-        raise NotImplementedError("B2 lands with the training slice")
+        records, tile_starts, tile_counts, out = ctx.saved_tensors
+        args = (records, tile_starts, tile_counts, out, g_tile.contiguous(),
+                ctx.num_groups, ctx.config)
+        if records.is_cuda:
+            drec = _rasterize_bwd_cuda(*args)
+        else:
+            drec = rasterize_pairs_backward_reference(*args)
+        return drec, None, None, None, None
 
 
 def rasterize_pairs(records: torch.Tensor, tile_starts: torch.Tensor,
@@ -312,6 +455,7 @@ def render_tiled(
 
 __all__ = [
     "OUT_CHANNELS", "rasterize_pairs", "rasterize_pairs_reference",
+    "rasterize_pairs_backward_reference",
     "render_tiles", "render_tiled", "untile", "untile_chw", "image_to_tiles",
     "tile_pixel_mask",
 ]

@@ -1,0 +1,427 @@
+"""3DGS optimization loop: Adam + densify/prune, one camera per step.
+
+The JAX package's train/trainer.py (``make_optimizer``, ``train_step``,
+``Trainer``, ``scene_extent_of``) in PyTorch, for one card:
+
+  * ``make_optimizer`` gives optax's numbers: Adam (b1 0.9, b2 0.999, eps
+    1e-15) per parameter group, the means' learning rate decaying
+    exponentially from ``lr_means * extent`` to ``lr_means_final * extent``
+    over ``iterations``, and the SH DC coefficient stepping at ``lr_sh0``
+    while the rest step at ``lr_shN`` inside one tensor. That last split
+    is why the update is a plain function on tensors in optax's order and
+    not ``torch.optim.Adam``.
+  * ``train_step`` renders in the rasterizer's tile layout (kernel B1,
+    backward kernel B2), takes the loss and its pixel gradient from kernel
+    B3 (``fused_loss=True``, ``ssim_weight`` > 0, the default) or from the
+    plain tile L1 (``ssim_weight`` = 0, as the JAX package does), and
+    differentiates a zero ``mean2d_offset`` probe for the screen-space
+    gradients densification reads. Parameters are updated in place; dead
+    slots keep theirs while their moments still update.
+  * ``Trainer`` drives the loop: camera order from ``default_rng(seed)``, a
+    byte-bounded LRU cache of targets on the card, a running count of
+    pair-pool overflows kept on the card and read only at log and densify
+    boundaries (doubling the pool when it grew), densify / prune / opacity
+    reset, and JSONL metrics.
+
+Batched steps (``camera_batch`` > 1), the split loss with SSIM
+(``fused_loss=False``, kernels B4a-c), a device mesh and checkpointing come
+with later slices; the first three raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from intro_to_gaussian_splatting_tpu_torch.config import (
+    RasterizerConfig,
+    TrainConfig,
+)
+from intro_to_gaussian_splatting_tpu_torch.models.camera import Camera
+from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
+    PARAM_NAMES,
+    GaussianModel,
+)
+from intro_to_gaussian_splatting_tpu_torch.ops.binning import tile_grid
+from intro_to_gaussian_splatting_tpu_torch.ops.fused_loss import (
+    fused_photometric_loss,
+)
+from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
+    image_to_tiles,
+    render_tiles,
+    tile_pixel_mask,
+)
+from intro_to_gaussian_splatting_tpu_torch.train import densify as D
+from intro_to_gaussian_splatting_tpu_torch.train.loss import (
+    psnr_from_mse,
+    tile_l1,
+    tile_psnr,
+)
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-15
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AdamGroup:
+    """optax's ``ScaleByAdamState`` of one parameter group; for the means
+    also the step count of their learning-rate schedule."""
+
+    count: torch.Tensor          # () int32
+    mu: torch.Tensor
+    nu: torch.Tensor
+    schedule_count: Optional[torch.Tensor] = None
+
+
+OptState = Dict[str, AdamGroup]
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """Per-group Adam with the 3DGS learning rates (``make_optimizer``)."""
+
+    config: TrainConfig
+    scene_extent: float
+
+    def init(self, params: Dict[str, torch.Tensor]) -> OptState:
+        def group(name, p):
+            zero = torch.zeros((), dtype=torch.int32, device=p.device)
+            return AdamGroup(
+                count=zero, mu=torch.zeros_like(p), nu=torch.zeros_like(p),
+                schedule_count=zero.clone() if name == "means" else None)
+        return {name: group(name, params[name].detach())
+                for name in PARAM_NAMES}
+
+    def step_size(self, name: str, group: AdamGroup, like: torch.Tensor):
+        """The signed step multiplying the Adam direction, as optax's
+        ``scale`` / ``scale_by_schedule`` compute it."""
+        c = self.config
+        if name == "means":
+            # exponential_decay at the pre-increment count
+            count = group.schedule_count
+            init = _f32(c.lr_means * self.scene_extent, like.device)
+            rate = _f32(c.lr_means_final / c.lr_means, like.device)
+            p = count.to(torch.float32) / float(c.iterations)
+            lr = torch.where(count <= 0, init, init * torch.pow(rate, p))
+            return -lr
+        if name == "sh":
+            k = like.shape[1]
+            scale = torch.full((k,), -c.lr_shN, dtype=torch.float32,
+                               device=like.device)
+            scale[0] = -c.lr_sh0
+            return scale[None, :, None]
+        return -{"log_scales": c.lr_scales, "quats": c.lr_quats,
+                 "opacity_logits": c.lr_opacity}[name]
+
+    def update(self, grads: Dict[str, torch.Tensor], state: OptState):
+        """(updates, new state) for ``grads``: optax's
+        ``tx.update(grads, state)``, with every operation in its order."""
+        updates, new_state = {}, {}
+        for name in PARAM_NAMES:
+            g, s = grads[name], state[name]
+            mu = (1 - ADAM_B1) * g + ADAM_B1 * s.mu
+            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * s.nu
+            count = s.count + 1
+            t = count.to(torch.float32)
+            mu_hat = mu / (1 - torch.pow(_f32(ADAM_B1, g.device), t))
+            nu_hat = nu / (1 - torch.pow(_f32(ADAM_B2, g.device), t))
+            direction = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+            updates[name] = direction * self.step_size(name, s, g)
+            new_state[name] = AdamGroup(
+                count=count, mu=mu, nu=nu,
+                schedule_count=(None if s.schedule_count is None
+                                else s.schedule_count + 1))
+        return updates, new_state
+
+    @torch.no_grad()
+    def step(self, model: GaussianModel, grads: Dict[str, torch.Tensor],
+             state: OptState) -> OptState:
+        """Apply one update to the model's parameters in place; dead slots
+        keep their values (their moments still update)."""
+        updates, state = self.update(grads, state)
+        for name in PARAM_NAMES:
+            p = getattr(model, name)
+            keep = model.active.reshape((-1,) + (1,) * (p.dim() - 1))
+            p.copy_(torch.where(keep, p + updates[name], p))
+        return state
+
+    @staticmethod
+    def moments(state: OptState):
+        """Every per-slot tensor of the state (for ``zero_slots``)."""
+        return [t for g in state.values() for t in (g.mu, g.nu)]
+
+
+def make_optimizer(config: TrainConfig, scene_extent: float) -> Optimizer:
+    """Per-parameter-group Adam with the 3DGS learning rates."""
+    return Optimizer(config, float(scene_extent))
+
+
+# ---------------------------------------------------------------------------
+# One step
+# ---------------------------------------------------------------------------
+
+def check_supported(tcfg: TrainConfig) -> None:
+    if tcfg.camera_batch > 1:
+        raise NotImplementedError(
+            "camera_batch > 1 (train_step_batched) comes with the batched-"
+            "steps slice of the port")
+    if tcfg.ssim_weight > 0.0 and not tcfg.fused_loss:
+        raise NotImplementedError(
+            "fused_loss=False with SSIM (the split loss, kernels B4a-c) "
+            "comes with the split-loss slice of the port")
+
+
+def camera_loss_and_grads(model: GaussianModel, camera: Camera,
+                          target_tiles: Optional[torch.Tensor],
+                          target_mask: Optional[torch.Tensor],
+                          target_image: Optional[torch.Tensor],
+                          rcfg: RasterizerConfig, tcfg: TrainConfig,
+                          active_sh_degree: int = 0):
+    """The photometric objective of one camera and its gradients:
+    (loss, mse, tiles, aux, grads). ``grads`` holds one tensor per
+    parameter and ``"probe"``, the (N, 2) screen-space gradient.
+
+    Fused path (``ssim_weight`` > 0): ``target_image`` is the (3, H, W)
+    target, kernel B3 gives loss, MSE and pixel gradient. Otherwise the
+    tile L1 against ``target_tiles`` / ``target_mask`` (``mse`` is None).
+    """
+    check_supported(tcfg)
+    h, w = camera.height, camera.width
+    ts = rcfg.tile_size
+    ntx, nty = tile_grid(w, h, ts)
+    probe = torch.zeros((model.capacity, 2), dtype=torch.float32,
+                        device=model.device, requires_grad=True)
+    tiles, aux = render_tiles(model, camera, rcfg,
+                              active_sh_degree=active_sh_degree,
+                              return_aux=True, mean2d_offset=probe)
+    if tcfg.ssim_weight > 0.0:
+        loss, mse = fused_photometric_loss(tiles, target_image, ntx, nty, ts,
+                                           h, w, tcfg.ssim_weight)
+    else:
+        loss, mse = tile_l1(tiles, target_tiles, target_mask), None
+    inputs = [getattr(model, name) for name in PARAM_NAMES] + [probe]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = {name: torch.zeros_like(x) if g is None else g
+             for name, x, g in zip(PARAM_NAMES + ("probe",), inputs, grads)}
+    return loss.detach(), mse, tiles.detach(), aux, grads
+
+
+def train_step(model: GaussianModel, opt_state: OptState,
+               dstate: D.DensifyState, camera: Camera,
+               target_tiles: Optional[torch.Tensor],
+               target_mask: Optional[torch.Tensor],
+               target_image: Optional[torch.Tensor],
+               rcfg: RasterizerConfig, tcfg: TrainConfig, tx: Optimizer,
+               active_sh_degree: int = 0):
+    """One optimization step on one camera in the rasterizer's tile
+    layout. Returns (model, opt_state, dstate, metrics); the model's
+    parameters are updated in place. Metrics stay on the model's device."""
+    loss, mse, tiles, aux, grads = camera_loss_and_grads(
+        model, camera, target_tiles, target_mask, target_image, rcfg, tcfg,
+        active_sh_degree)
+    opt_state = tx.step(model, grads, opt_state)
+    dstate = D.accumulate(dstate, grads["probe"], aux["visible"])
+    if mse is not None:
+        psnr_val = psnr_from_mse(mse)
+    else:
+        psnr_val = tile_psnr(tiles, target_tiles, target_mask)
+    metrics = dict(loss=loss, psnr=psnr_val,
+                   num_active=model.active.sum(),
+                   overflowed=aux["overflowed"])
+    return model, opt_state, dstate, metrics
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Trainer:
+    """Drives the loop on the model's device; holds the host-side state
+    (step counter, camera order, the generator of the split noise)."""
+
+    model: GaussianModel
+    cameras: list            # list[Camera]
+    targets: list            # list of (H, W, 3) arrays or tensors
+    scene_extent: float
+    rcfg: RasterizerConfig = RasterizerConfig()
+    tcfg: TrainConfig = TrainConfig()
+    log_every: int = 50
+    on_log: Optional[Callable] = None
+    mesh: Optional[object] = None     # multi-card training: a later slice
+    # one JSON object per logged metrics row
+    jsonl_path: Optional[str] = None
+    # device-memory budget for the cached targets, LRU-evicted beyond it
+    target_cache_bytes: int = 4 << 30
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "training over a device mesh (parallel/) comes with a later "
+                "slice of the port")
+        check_supported(self.tcfg)
+        self.device = self.model.device
+        self.tx = make_optimizer(self.tcfg, self.scene_extent)
+        self.opt_state = self.tx.init(
+            {name: getattr(self.model, name) for name in PARAM_NAMES})
+        self.dstate = D.DensifyState.zero(self.model.capacity, self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.tcfg.seed)
+        self.step = 0
+        self.history = []
+        # cam_idx -> (entry, nbytes), least recently used first
+        self._tiled = collections.OrderedDict()
+        self._tiled_bytes = 0
+        self._masks = {}     # (H, W) -> tile_pixel_mask
+        # steps whose pair pool overflowed, counted on the card and read
+        # only at log and densify boundaries
+        self._overflow_count = torch.zeros((), dtype=torch.int32,
+                                           device=self.device)
+        self._overflow_seen = 0
+
+    # ---- bounded target cache ------------------------------------------
+    def _cache_get(self, cam_idx: int):
+        if cam_idx not in self._tiled:
+            return None
+        self._tiled.move_to_end(cam_idx)
+        return self._tiled[cam_idx][0]
+
+    def _cache_put(self, cam_idx: int, entry, nbytes: int):
+        self._tiled[cam_idx] = (entry, nbytes)
+        self._tiled_bytes += nbytes
+        while (self._tiled_bytes > self.target_cache_bytes
+               and len(self._tiled) > 1):
+            old_key, (_, old_bytes) = self._tiled.popitem(last=False)
+            if old_key == cam_idx:      # never evict the entry just added
+                self._tiled[old_key] = (entry, nbytes)
+                break
+            self._tiled_bytes -= old_bytes
+        return entry
+
+    def _target_for(self, cam_idx: int):
+        """(target_tiles, target_mask, target_image) of one camera in the
+        layout its loss needs, LRU-cached on the device: the (3, H, W)
+        image for the fused loss, the tiles (and the shared pixel mask)
+        for the tile L1."""
+        cam = self.cameras[cam_idx]
+        h, w = cam.height, cam.width
+        fused = self.tcfg.ssim_weight > 0.0
+        entry = self._cache_get(cam_idx)
+        if entry is None:
+            target = torch.as_tensor(self.targets[cam_idx],
+                                     dtype=torch.float32, device=self.device)
+            if fused:
+                entry = target.permute(2, 0, 1).contiguous()
+            else:
+                entry = image_to_tiles(target, self.rcfg)
+            self._cache_put(cam_idx, entry,
+                            entry.numel() * entry.element_size())
+        if fused:
+            return None, None, entry
+        if (h, w) not in self._masks:
+            self._masks[(h, w)] = tile_pixel_mask(h, w, self.rcfg,
+                                                  self.device)
+        return entry, self._masks[(h, w)], None
+
+    @property
+    def active_sh_degree(self) -> int:
+        if self.model.color_space != "sh":
+            return 0
+        return min(self.model.sh_degree,
+                   self.step // self.tcfg.sh_degree_interval)
+
+    def run(self, iterations: Optional[int] = None):
+        iterations = iterations or self.tcfg.iterations
+        order = np.random.default_rng(self.tcfg.seed).permutation(
+            np.arange(iterations) % len(self.cameras))
+        t0 = time.time()
+        for it in range(iterations):
+            cam_idx = int(order[it])
+            target_tiles, target_mask, target_image = self._target_for(
+                cam_idx)
+            self.model, self.opt_state, self.dstate, metrics = train_step(
+                self.model, self.opt_state, self.dstate,
+                self.cameras[cam_idx], target_tiles, target_mask,
+                target_image, self.rcfg, self.tcfg, self.tx,
+                self.active_sh_degree)
+            self.step += 1
+            self._overflow_count += metrics["overflowed"].to(torch.int32)
+            self._maybe_densify()
+            if self.step % self.log_every == 0 or it == iterations - 1:
+                m = dict(metrics, overflow_steps=self._overflow_count)
+                m = self._fetch_metrics(m)
+                # steps since the last boundary whose pool overflowed
+                total = int(m.pop("overflow_steps"))
+                m["overflow_steps"] = total - self._overflow_seen
+                self._overflow_seen = total
+                m.update(step=self.step, sec=round(time.time() - t0, 2))
+                self.history.append(m)
+                if self.jsonl_path:
+                    with open(self.jsonl_path, "a") as f:
+                        f.write(json.dumps(m) + "\n")
+                if self.on_log:
+                    self.on_log(m)
+                if m["overflow_steps"] > 0:
+                    self._grow_pair_pool()
+        return self.history
+
+    @staticmethod
+    def _fetch_metrics(metrics: dict) -> dict:
+        """Device scalars -> host floats in one transfer."""
+        keys = list(metrics)
+        values = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64)
+                              for k in keys]).tolist()
+        return dict(zip(keys, values))
+
+    def _grow_pair_pool(self):
+        """The pair pool dropped whole far gaussians: double it so the drop
+        is a transient, not a steady state."""
+        self.rcfg = dataclasses.replace(
+            self.rcfg, pairs_per_gaussian=self.rcfg.pairs_per_gaussian * 2)
+        if self.on_log:
+            self.on_log(dict(step=self.step, event="pair_pool_grown",
+                             pairs_per_gaussian=self.rcfg.pairs_per_gaussian))
+
+    def _maybe_densify(self):
+        t = self.tcfg
+        if (t.densify_start <= self.step <= t.densify_stop
+                and self.step % t.densify_interval == 0):
+            # densification grows pair demand: grow a truncating pool at
+            # most one interval after it starts dropping
+            total = int(self._overflow_count.item())
+            if total > self._overflow_seen:
+                self._overflow_seen = total
+                self._grow_pair_pool()
+            cap = self.model.capacity
+            max_new = max(cap // 8, 1)
+            noise = D.split_noise(max_new, self.generator, self.device)
+            slots = D.densify(self.model, self.dstate, noise, t,
+                              self.scene_extent, max_new)
+            D.prune(self.model, t, self.scene_extent)
+            D.zero_slots(Optimizer.moments(self.opt_state), slots, cap)
+            self.dstate = D.DensifyState.zero(cap, self.device)
+        if (t.opacity_reset_interval and self.step > 0
+                and self.step % t.opacity_reset_interval == 0):
+            D.reset_opacity(self.model)
+
+
+def scene_extent_of(points: np.ndarray) -> float:
+    """Radius of the point cloud's bounding sphere about its mean (3DGS
+    uses the camera extent; the point extent stands in)."""
+    center = points.mean(axis=0)
+    return float(np.linalg.norm(points - center, axis=1).max())

@@ -1,5 +1,5 @@
 """Helpers shared by the PyTorch port's parity tests, and tests of the
-port's device rule, its model conversion and its gradient guard.
+port's device rule and its model conversion.
 
 The parity tests build one scene with numpy from a seed (tests/scenes.py),
 run it through the JAX package and, converted through numpy, through the
@@ -92,14 +92,3 @@ def test_model_from_numpy_keeps_weights_bit_for_bit():
                                       np.asarray(getattr(cam, name)))
     assert (tc.width, tc.height) == (cam.width, cam.height)
 
-
-def test_rasterize_backward_raises_until_b2():
-    from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
-        render_tiled,
-    )
-
-    raw, cam, model = small_scene(n=20, width=16, height=16, seed=4)
-    img = render_tiled(port_model(model), port_camera(cam), RasterizerConfig())
-    assert img.requires_grad
-    with pytest.raises(NotImplementedError, match="B2"):
-        img.sum().backward()

@@ -10,6 +10,12 @@ card and no JAX:
 Each ``cuda`` test takes the ``cuda_device`` fixture, which skips when there
 is no card. The CPU tests check what the wrappers do without one: the plain
 versions run and nothing is built.
+
+Tolerances: B1 rtol 1e-4 / atol 1e-5 (kernel and plain version round alike,
+-fmad=false); B2 and B3 gradients a relative L2 difference <= 1e-4 (the
+kernels sum pixels in a tree, the plain versions with torch.sum or through
+conv2d), B3's value and MSE rel 1e-5; the relayouts exactly equal. Every
+kernel's output is the same bit for bit from one launch to the next.
 """
 
 import numpy as np
@@ -19,13 +25,16 @@ import torch
 from intro_to_gaussian_splatting_tpu_torch.config import (
     CompatConfig,
     RasterizerConfig,
+    TrainConfig,
 )
 from intro_to_gaussian_splatting_tpu_torch.io.synthetic import ring_cameras
 from intro_to_gaussian_splatting_tpu_torch.models import (
     GaussianModel,
     make_camera,
 )
+from intro_to_gaussian_splatting_tpu_torch.models.gaussians import PARAM_NAMES
 from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
+from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
 from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
 from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
@@ -34,9 +43,11 @@ from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
     tile_grid,
 )
 from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
+    GRAD_ROWS,
     project_gaussians,
 )
 from intro_to_gaussian_splatting_tpu_torch.ops.render import render
+from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
 
 CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
 # kernel and plain version round alike (-fmad=false); the tolerance is the
@@ -62,7 +73,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _scene(device, n, width, height, seed, opacity_hi=4.0):
+def _scene(device, n, width, height, seed, opacity_hi=4.0,
+           scales=(0.02, 0.25)):
     """Random gaussians in front of a ring camera, made with numpy."""
     rng = np.random.default_rng(seed)
     qvec, tvec = ring_cameras(1, width, height, radius=5.0, z=1.0,
@@ -74,7 +86,7 @@ def _scene(device, n, width, height, seed, opacity_hi=4.0):
     model = GaussianModel(
         means=f32(rng.normal(0.0, 1.2, size=(n, 3))),
         sh=f32(rng.uniform(0.0, 1.0, size=(n, 3)))[:, None, :],
-        log_scales=f32(np.log(rng.uniform(0.02, 0.25, size=(n, 3)))),
+        log_scales=f32(np.log(rng.uniform(*scales, size=(n, 3)))),
         quats=f32(rng.normal(size=(n, 4))),
         opacity_logits=f32(rng.uniform(-2.0, opacity_hi, size=(n,))),
         active=torch.ones(n, dtype=torch.bool, device=device),
@@ -94,34 +106,66 @@ def _bins(case, device):
     return cfg, num_groups_for(ntx * nty, cfg), bins
 
 
+KERNELS = (tr.RASTERIZE_FWD, tr.RASTERIZE_BWD, tf.FUSED_LOSS, tl.UNTILE_CHW,
+           tl.TILE_CHW)
+
+
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    den = torch.linalg.norm(want)
+    return float(torch.linalg.norm(got - want) / den) if den else float(
+        torch.linalg.norm(got))
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
-    """On the CPU the wrappers run the plain versions and never build or
-    launch a kernel."""
+    """On the CPU the wrappers, forward and backward, run the plain
+    versions and never build or launch a kernel."""
     def no_build(*args):
         raise AssertionError("a CPU tensor reached the CUDA build")
 
     monkeypatch.setattr(cuda_build, "build", no_build)
-    before = (tr.RASTERIZE_FWD.launches, tl.UNTILE_CHW.launches)
+    before = [k.launches for k in KERNELS]
     cfg, ng, bins = _bins("early_exit", "cpu")
     args = (bins.pair_records, bins.tile_starts, bins.tile_counts, ng, cfg)
-    tiles = tr.rasterize_pairs(*args)
+    records = bins.pair_records.clone().requires_grad_(True)
+    tiles = tr.rasterize_pairs(records, *args[1:])
     torch.testing.assert_close(tiles, tr.rasterize_pairs_reference(*args),
                                rtol=0, atol=0)
+    g = torch.randn(tiles.shape, generator=torch.Generator().manual_seed(0))
+    drec, = torch.autograd.grad(tiles, records, g)
+    assert torch.equal(drec, tr.rasterize_pairs_backward_reference(
+        *args[:3], tiles.detach(), g, ng, cfg))
     ntx, nty = tile_grid(48, 32, 16)
-    assert torch.equal(tl.untile_chw_fast(tiles, ntx, nty, 16, 32, 48),
-                       tl.untile_chw(tiles[:, :3], ntx, nty, 16, 32, 48))
-    assert (tr.RASTERIZE_FWD.launches, tl.UNTILE_CHW.launches) == before
+    tiles = tiles.detach().requires_grad_(True)
+    img = tl.untile_chw_fast(tiles, ntx, nty, 16, 32, 48)
+    assert torch.equal(img, tl.untile_chw(tiles[:, :3], ntx, nty, 16, 32, 48))
+    g3 = torch.randn(img.shape, generator=torch.Generator().manual_seed(1))
+    back, = torch.autograd.grad(img, tiles, g3)
+    assert torch.equal(back, tl.tile_chw(g3, ng, 5, cfg.group_tiles, ntx,
+                                         nty, 16))
+    loss, mse = tf.fused_photometric_loss(tiles, g3.abs(), ntx, nty, 16, 32,
+                                          48, 0.2)
+    want = tf.fused_photometric_loss_reference(tiles, g3.abs(), ntx, nty, 16,
+                                               32, 48, 0.2)
+    assert torch.equal(loss, want[0]) and torch.equal(mse, want[1])
+    assert [k.launches for k in KERNELS] == before
 
 
 def test_kernel_build_flags():
-    for src in (tr.RASTERIZE_SOURCE, tl.UNTILE_SOURCE):
+    sources = (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
+               tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE)
+    assert [k.source for k in KERNELS] == list(sources)
+    for src in sources:
         assert src.path.is_file()
         flags = cuda_build.NVCC_FLAGS + src.extra_flags
         assert "arch=compute_90a,code=sm_90a" in flags
         assert "--use_fast_math" not in flags
         assert "__expf(" not in src.path.read_text()
         assert src.library().name.startswith(f"lib{src.name}-")
-    assert "-fmad=false" in tr.RASTERIZE_SOURCE.extra_flags
+    for src in (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
+                tf.FUSED_LOSS_SOURCE):
+        assert "-fmad=false" in src.extra_flags
+        assert "atomicAdd" not in src.path.read_text()
 
 
 @pytest.mark.cuda
@@ -180,3 +224,130 @@ def test_render_on_card_matches_cpu(cuda_device):
         with torch.no_grad():
             renders[str(device)] = render(model, cam, cfg).cpu()
     torch.testing.assert_close(renders["cuda"], renders["cpu"], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_b2_kernel_matches_plain_on_card(case, cuda_device):
+    cfg, ng, bins = _bins(case, cuda_device)
+    args = (bins.pair_records, bins.tile_starts, bins.tile_counts)
+    out = tr.rasterize_pairs(*args, ng, cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device)
+    before = tr.RASTERIZE_BWD.launches
+    got = tr._rasterize_bwd_cuda(*args, out, g, ng, cfg)
+    again = tr._rasterize_bwd_cuda(*args, out, g, ng, cfg)
+    torch.cuda.synchronize()
+    assert tr.RASTERIZE_BWD.launches == before + 2
+    assert torch.equal(got, again)
+    want = tr.rasterize_pairs_backward_reference(*args, out, g, ng, cfg)
+    for row in GRAD_ROWS:
+        assert rel_l2(got[row], want[row]) <= 1e-4, row
+    assert not got[[6, 7, 8, 9, 10, 15]].any()
+    total = int(bins.tile_counts.sum())
+    assert not got[:, total:].any()
+
+
+def _loss_inputs(device, h, w, seed):
+    """Five-channel tiles with junk outside the image, and a target."""
+    cfg = RasterizerConfig(group_tiles=4, groups_per_step=2)
+    ntx, nty = tile_grid(w, h, 16)
+    ng = num_groups_for(ntx * nty, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    target = torch.rand((3, h, w), generator=gen)
+    pred = (target + 0.15 * torch.randn((3, h, w), generator=gen)).clamp(
+        0.0, 1.2)
+    tiles = tl.tile_chw(pred, ng, 5, cfg.group_tiles, ntx, nty, 16)
+    inside = tl.tile_chw(torch.ones((5, h, w)), ng, 5, cfg.group_tiles,
+                         ntx, nty, 16) > 0
+    junk = torch.empty(tiles.shape).uniform_(-3.0, 3.0, generator=gen)
+    tiles = torch.where(inside, tiles, junk)
+    return (tiles.to(device), target.to(device), ntx, nty, inside[:, :3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(75, 90), (64, 128)])
+def test_b3_kernel_matches_plain_on_card(h, w, cuda_device):
+    tiles, target, ntx, nty, inside = _loss_inputs(cuda_device, h, w, 0)
+    args = (tiles, target, ntx, nty, 16, h, w, 0.2)
+    before = tf.FUSED_LOSS.launches
+    loss, mse, grad = tf._fused_loss_cuda(*args)
+    again = tf._fused_loss_cuda(*args)
+    torch.cuda.synchronize()
+    assert tf.FUSED_LOSS.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip((loss, mse, grad), again))
+    want = tf.fused_photometric_loss_reference(*args)
+    assert float(loss) == pytest.approx(float(want[0]), rel=1e-5)
+    assert float(mse) == pytest.approx(float(want[1]), rel=1e-5)
+    assert rel_l2(grad, want[2]) <= 1e-4
+    assert not grad[:, 3:].any()
+    assert not grad[:, :3][~inside.to(cuda_device)].any()
+
+
+@pytest.mark.cuda
+def test_b5_tile_kernel_matches_plain_on_card(cuda_device):
+    w, h, ts, gt = 84, 52, 16, 4
+    ntx, nty = tile_grid(w, h, ts)
+    ng = num_groups_for(ntx * nty, RasterizerConfig(group_tiles=gt))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tiles = torch.randn((ng, 5, gt, ts * ts), generator=gen,
+                        device=cuda_device, requires_grad=True)
+    g3 = torch.randn((3, h, w), generator=gen, device=cuda_device)
+    before = tl.TILE_CHW.launches
+    back, = torch.autograd.grad(
+        tl.untile_chw_fast(tiles, ntx, nty, ts, h, w), tiles, g3)
+    torch.cuda.synchronize()
+    assert tl.TILE_CHW.launches == before + 1
+    assert torch.equal(back, tl.tile_chw(g3, ng, 5, gt, ntx, nty, ts))
+
+
+@pytest.mark.cuda
+def test_render_tiled_gradient_on_card_matches_cpu(cuda_device):
+    """``render_tiled`` on the card carries a gradient (B1, B5-untile, then
+    B5-tile, B2), equal to the CPU path's."""
+    kw, cfg = CASES["early_exit"]
+    grads = {}
+    for device in ("cpu", cuda_device):
+        model, cam = _scene(device, **kw)
+        gen = torch.Generator().manual_seed(2)
+        w = torch.randn((cam.height, cam.width, 3), generator=gen).to(device)
+        before = tl.TILE_CHW.launches
+        img = tr.render_tiled(model, cam, cfg)
+        params = [getattr(model, n) for n in PARAM_NAMES]
+        grads[str(device)] = [
+            x.cpu() for x in torch.autograd.grad((img * w).sum(), params)]
+        if device != "cpu":
+            assert tl.TILE_CHW.launches == before + 1
+    for name, got, want in zip(PARAM_NAMES, grads["cuda"], grads["cpu"]):
+        assert rel_l2(got, want) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_train_step_gradients_on_card(cuda_device):
+    """One default step's loss and gradients on the card against the CPU
+    path, and bit for bit the same from one backward pass to the next.
+    (Splats of 0.08-0.3: with thinner ones the quaternion and scale
+    gradients of the two paths part by more than the tolerance although
+    B2 matches its plain version closely, f32 rounding of the two
+    projections amplified by cancellation in the covariance's backward;
+    chip_smoke.py reports that case.)"""
+    kw = dict(n=200, width=48, height=32, seed=11, scales=(0.08, 0.3))
+    cfg = CFG
+    tcfg = TrainConfig()
+    runs = {}
+    for device in ("cpu", cuda_device, cuda_device):
+        model, cam = _scene(device, **kw)
+        gen = torch.Generator().manual_seed(3)
+        target = torch.rand((3, cam.height, cam.width), generator=gen)
+        loss, mse, _, _, grads = T.camera_loss_and_grads(
+            model, cam, None, None, target.to(device), cfg, tcfg)
+        runs.setdefault(str(device), []).append(
+            (loss.cpu(), mse.cpu(), {k: v.cpu() for k, v in grads.items()}))
+    (cpu_loss, cpu_mse, cpu_grads), = runs["cpu"]
+    (loss, mse, grads), (loss2, _, grads2) = runs["cuda"]
+    assert float(loss) == pytest.approx(float(cpu_loss), rel=1e-5)
+    assert float(mse) == pytest.approx(float(cpu_mse), rel=1e-5)
+    assert torch.equal(loss, loss2)
+    for name in grads:
+        assert rel_l2(grads[name], cpu_grads[name]) <= 1e-4, name
+        assert torch.equal(grads[name], grads2[name]), name

@@ -1,10 +1,13 @@
-"""Port vs JAX package: the rasterizer's plain version against the Pallas
-kernel (interpret mode) on the same bins, and the layout helpers.
+"""Port vs JAX package: the rasterizer's plain versions against the Pallas
+kernels (interpret mode) on the same bins, and the layout helpers.
 
 rasterize_pairs: rtol 1e-4 / atol 1e-5 (the JAX kernel sums through f32
-one-hot matmuls and segmented scans, the port sequentially per pixel).
-Layout helpers: exactly equal (they are permutations). The CUDA kernels
-are held against these plain versions on the card in test_torch_kernels.py.
+one-hot matmuls and segmented scans, the port sequentially per pixel). Its
+gradient (B2): relative L2 difference <= 1e-4 per record row, the ROADMAP's
+gradient gate, and exact zeros where the kernel must write them. Layout
+helpers and their adjoints: exactly equal (they are permutations). The
+CUDA kernels are held against these plain versions on the card in
+test_torch_kernels.py.
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ from intro_to_gaussian_splatting_tpu.ops.relayout_pallas import (
 )
 from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
+from intro_to_gaussian_splatting_tpu_torch.ops.projection import GRAD_ROWS
 from tests.scenes import small_scene
 from tests.test_torch_common import np_, port_config
 
@@ -82,6 +86,36 @@ def test_rasterize_pairs_matches_pallas(case):
         assert np.asarray(bins.tile_counts).max() > cfg.chunk_size
 
 
+def rel_l2(got, want):
+    """||got - want|| / ||want|| (0 when both are 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    den = np.linalg.norm(want)
+    return np.linalg.norm(got - want) / den if den else np.linalg.norm(got)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rasterize_backward_matches_pallas(case):
+    """B2's plain version against jax.vjp of the Pallas kernel, for a
+    random cotangent of the (NG, 5, GT, 256) output."""
+    cfg, ng, bins = _bins(case)
+    out, vjp = jax.vjp(lambda r: jr.rasterize_pairs(
+        r, bins.group_starts, ng, cfg, True), bins.pair_records)
+    g = np.random.default_rng(0).normal(size=out.shape).astype(np.float32)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    records, starts, counts = _port_args(bins)
+    got = np_(tr.rasterize_pairs_backward_reference(
+        records, starts, counts, torch.from_numpy(np.array(out)),
+        torch.from_numpy(g), ng, port_config(cfg)))
+    assert got.shape == want.shape
+    for row in GRAD_ROWS:
+        assert np.linalg.norm(want[row]) > 0, row
+        assert rel_l2(got[row], want[row]) <= 1e-4, row
+    # the bbox, tile-id and one rows, and the slots past the last tile
+    assert not got[[6, 7, 8, 9, 10, 15]].any()
+    total = int(np.asarray(bins.tile_counts).sum())
+    assert total < got.shape[1] and not got[:, total:].any()
+
+
 def test_evaluation_count_stops_at_each_pixel_exit():
     """The plain version counts the (pair, pixel) evaluations up to each
     pixel's exit: all of them with a threshold nothing reaches, fewer
@@ -119,6 +153,21 @@ def test_layout_helpers_match():
     np.testing.assert_array_equal(
         np_(tr.untile(tt, ntx, nty, ts, h, w)),
         np.asarray(jr.untile(jnp.asarray(tiles), ntx, nty, ts, h, w)))
+
+    # the adjoint (B5-tile's plain version) against the Pallas VJP
+    g = rng.standard_normal((3, h, w)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jax_untile_chw_fast(t, ntx, nty, ts, h, w,
+                                                   True),
+                     jnp.asarray(tiles[:, :4]))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = np_(tl.tile_chw(torch.from_numpy(g), ng, 5, gt, ntx, nty, ts))
+    np.testing.assert_array_equal(got[:, :4], want)
+    assert not got[:, 3:].any()
+    tt.requires_grad_(True)
+    back, = torch.autograd.grad(
+        tl.untile_chw_fast(tt, ntx, nty, ts, h, w), tt,
+        torch.from_numpy(g))
+    np.testing.assert_array_equal(np_(back), got)
 
     img = rng.standard_normal((h, w, 3)).astype(np.float32)
     np.testing.assert_array_equal(
