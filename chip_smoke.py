@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port: the render path and the training
-step.
+"""On-card check of the PyTorch/CUDA port: the render path, the training
+step with the fused or the split loss, and batched steps.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -10,7 +10,7 @@ It imports only the port (``intro_to_gaussian_splatting_tpu_torch``), never
 JAX, and prints one JSON line per phase:
 
   device          card name and power limit, torch and CUDA versions, the
-                  build of all five kernels (one nvcc per source, started
+                  build of all eight kernels (one nvcc per source, started
                   together) and ptxas's register / shared-memory / spill
                   report;
   small           a small seeded scene rendered on the card against the
@@ -18,6 +18,11 @@ JAX, and prints one JSON line per phase:
   small_train     one default training step's loss and gradients on the
                   card against the CPU path (plain versions), and two
                   backward passes on the card bit for bit equal;
+  small_train_split  the same with ``TrainConfig(fused_loss=False)`` (tile
+                  L1, B5-untile, the fused SSIM B4a; back through B4b,
+                  B5-tile and B2);
+  small_batched   ``train_step_batched`` over two cameras on the card: its
+                  Adam step is on the mean of the two cameras' gradients;
   small_trainer   six steps of ``Trainer.run`` on the card, that scene in a
                   pool with free slots: densify, prune and the opacity
                   reset run, the logged metrics come back;
@@ -46,11 +51,21 @@ JAX, and prints one JSON line per phase:
   train_kernels_* per scene, on the step's real inputs, B2, B3 and B5-tile
                   against their plain versions, with times, bounds, plain
                   times and (B5-tile) the library call's; the step's
-                  gradients from two backward passes bit for bit equal.
+                  gradients from two backward passes bit for bit equal;
+  ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
+                  3x3324x5068 images, times, bounds, plain times; the
+                  one-pass path ``fused_ssim(precompute_grad=True)`` under
+                  autograd, counted (B4c once);
+  train_split_ref_init    ten split-loss ``train_step``s at ref_init, each
+                  launching B1, B2, B4a, B4b, B5-untile and B5-tile once
+                  and B3 never, counted from 0 as above;
+  train_batched_ref_init  five ``train_step_batched`` steps over two ring
+                  cameras at ref_init, each launching B1, B2 and B3 twice.
 
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
-the ref_init render gradient) and, last, the contract line. Any failed check
+the ref_init render gradient, B4a and B4b from the split-loss run, B4c from
+the one-pass SSIM path) and, last, the contract line. Any failed check
 exits non-zero before the last line; with no card, or outside a checkout, it
 exits non-zero and prints no result.
 """
@@ -95,6 +110,18 @@ B2_REPLACES = "intro_to_gaussian_splatting_tpu/ops/rasterize_pallas.py:333"
 B3_REPLACES = "intro_to_gaussian_splatting_tpu/ops/fused_loss_pallas.py:112"
 B5_REPLACES = "intro_to_gaussian_splatting_tpu/ops/relayout_pallas.py:59"
 B5_TILE_REPLACES = "intro_to_gaussian_splatting_tpu/ops/relayout_pallas.py:89"
+B4A_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:104"
+B4B_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:156"
+B4C_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:210"
+
+# Operations kernel B4a does per pixel and channel, counted as B3's: x^2,
+# y^2, xy (3); the five 11-tap blurs down and along (2 x 5 x 21); the SSIM
+# terms (22). B4b adds the three window coefficients (15), the three
+# adjoint blurs along and down (2 x 3 x 21) and the gradient (6); B4c adds
+# the value (1).
+B4A_OPS_PER_PIXEL = 3 + 2 * 5 * 21 + 22
+B4B_OPS_PER_PIXEL = B4A_OPS_PER_PIXEL + 15 + 2 * 3 * 21 + 6
+B4C_OPS_PER_PIXEL = B4B_OPS_PER_PIXEL + 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -247,64 +274,94 @@ def train_stage_times(torch, M, model, cam, target, cfg, tcfg, tx, opt_state,
     return sums, opt_state, dstate
 
 
-def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
-    """The training main path: ``steps`` train_steps of the default
-    TrainConfig with every launch count set to 0 just before and read just
-    after. Emits the phase line and returns the launch totals."""
-    tcfg = M.TrainConfig()
-    tx = M.T.make_optimizer(tcfg, 10.0)
-    opt_state = tx.init({n: getattr(model, n) for n in M.PARAM_NAMES})
-    dstate = M.D.DensifyState.zero(model.capacity, "cuda")
-    kernels = {"B1": M.R.RASTERIZE_FWD, "B2": M.R.RASTERIZE_BWD,
-               "B3": M.FL.FUSED_LOSS}
+def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
+              after=None):
+    """The main path of a training variant: ``steps`` calls of ``step()``
+    (one training step, returning its metrics) with every launch count set
+    to 0 just before and read just after. Each step must launch each kernel
+    of ``expect`` ({symbol: launches}) exactly that often, the loss must
+    fall and the parameters stay finite. Emits the phase line (step ms on a
+    host clock, mean of steps 2 on; Mpix/s; the fields ``after()`` returns,
+    called after the steps; one step under torch.profiler; peak memory over
+    the steps) and returns the launch totals by symbol."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in M.ALL_KERNELS:
         k.launches = 0
     rows, secs = [], []
     for i in range(steps):
-        before = {n: k.launches for n, k in kernels.items()}
+        before = {k.symbol: k.launches for k in M.ALL_KERNELS}
         t0 = time.perf_counter()
-        model, opt_state, dstate, metrics = M.T.train_step(
-            model, opt_state, dstate, cam, None, None, target, cfg, tcfg, tx)
+        metrics = step()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        launched = {k.symbol: k.launches - before[k.symbol]
+                    for k in M.ALL_KERNELS}
         loss, psnr = (float(v) for v in torch.stack(
             [metrics["loss"], metrics["psnr"]]).tolist())
-        rows.append(dict(step=i + 1, loss=loss, psnr=psnr, launches=launched,
+        rows.append(dict(step=i + 1, loss=loss, psnr=psnr,
+                         launches={n: launched[n] for n in expect},
                          overflowed=bool(metrics["overflowed"]),
                          seconds=secs[-1]))
-    launches = {n: k.launches for n, k in kernels.items()}
-    other = {k.symbol: k.launches for k in M.ALL_KERNELS
-             if k not in kernels.values()}
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     finite = all(bool(torch.isfinite(getattr(model, n)).all())
                  for n in M.PARAM_NAMES)
     step_ms = sum(secs[1:]) / len(secs[1:]) * 1e3
-    mpix = cam.width * cam.height / 1e6
-    stages, opt_state, dstate = train_stage_times(
-        torch, M, model, cam, target, cfg, tcfg, tx, opt_state, dstate)
-
-    def one_step():
-        M.T.train_step(model, opt_state, dstate, cam, None, None, target,
-                       cfg, tcfg, tx)
-
-    profile = device_profile(torch, one_step)
-    emit(f"train_{scene}", gaussians=model.capacity, steps=rows,
-         launches_in_run=launches, other_launches_in_run=other,
-         step_ms_mean_2_to_10=step_ms,
-         train_step_mpix_per_s=mpix / (step_ms / 1e3),
-         stages_host_ms=stages, device_profile=profile,
-         max_memory_allocated=peak, params_finite=finite, card=card)
-    check(all(min(r["launches"].values()) >= 1 for r in rows),
-          f"train_{scene}: a kernel of the step was not launched: {rows}")
+    extra = after() if after else {}
+    profile = device_profile(torch, step)
+    emit(phase, gaussians=model.capacity, steps=rows,
+         launches_in_run=launches, step_ms_mean_2_on=step_ms,
+         train_step_mpix_per_s=mpix / (step_ms / 1e3), **extra,
+         device_profile=profile, max_memory_allocated=peak,
+         params_finite=finite, card=card)
+    check(all(r["launches"] == expect for r in rows),
+          f"{phase}: a step did not launch {expect}: {rows}")
     check(finite and all(math.isfinite(r["loss"]) for r in rows),
-          f"train_{scene}: loss or parameters not finite")
+          f"{phase}: loss or parameters not finite")
     check(rows[-1]["loss"] < rows[0]["loss"],
-          f"train_{scene}: loss did not fall ({rows[0]['loss']} -> "
+          f"{phase}: loss did not fall ({rows[0]['loss']} -> "
           f"{rows[-1]['loss']})")
     return launches
+
+
+def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
+    """One training step of ``step_fn`` (``train_step`` or
+    ``train_step_batched``) on ``model`` per call, from a fresh Adam and
+    densify state kept in ``state``: returns (step, state)."""
+    tx = M.T.make_optimizer(tcfg, 10.0)
+    state = {"tx": tx,
+             "opt": tx.init({n: getattr(model, n) for n in M.PARAM_NAMES}),
+             "densify": M.D.DensifyState.zero(model.capacity, "cuda")}
+
+    def step():
+        _, state["opt"], state["densify"], metrics = step_fn(
+            model, state["opt"], state["densify"], camera, *targets, cfg,
+            tcfg, tx)
+        return metrics
+
+    return step, state
+
+
+def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
+    """The training main path: ``steps`` train_steps of the default
+    TrainConfig, each launching B1, B2 and B3 once (``run_steps``), then
+    the stage times of three more. Returns the launch totals by kernel."""
+    tcfg = M.TrainConfig()
+    step, state = make_step(M, M.T.train_step, model, cam,
+                            (None, None, target), cfg, tcfg)
+
+    def stages():
+        sums, state["opt"], state["densify"] = train_stage_times(
+            torch, M, model, cam, target, cfg, tcfg, state["tx"],
+            state["opt"], state["densify"])
+        return dict(stages_host_ms=sums)
+
+    launches = run_steps(
+        torch, M, f"train_{scene}", step, model,
+        {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1}, steps,
+        cam.width * cam.height / 1e6, card, after=stages)
+    return {"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]}
 
 
 def render_grad_run(torch, M, scene, model, cam, target_hwc, cfg, card):
@@ -452,6 +509,136 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     return rows
 
 
+def ssim_kernels(torch, M, height, width, card):
+    """B4a, B4b (both grad_target settings) and B4c against their plain
+    versions on seeded (3, H, W) images of the training path's size: the
+    value (rel 1e-5), the gradients (relative L2 1e-4), the target's
+    gradient exactly 0 without grad_target, each bit for bit equal on
+    repeat, and B4c against B4a and B4b (value rel 1e-6, gradient relative
+    L2 1e-5). Then the one-pass path, ``1 - fused_ssim(precompute_grad=
+    True)`` under autograd, with the launch counts set to 0 just before and
+    read just after: it must launch B4c once and B4a, B4b never. Times from
+    CUDA events, bounds, plain times. Returns the three kernel rows, B4a's
+    and B4b's launches left for the split training run to fill in."""
+    S = M.S
+    c1, c2 = S.L.C1, S.L.C2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((3, height, width), generator=gen, device="cuda")
+    b = (a + 0.2 * torch.randn((3, height, width), generator=gen,
+                               device="cuda")).clamp(0.0, 1.0)
+    g = torch.tensor(0.7, device="cuda")
+    one = torch.ones((), device="cuda")
+    with torch.no_grad():
+        value = S._ssim_sum_cuda(a, b, c1, c2)
+        a_repeat = torch.equal(value, S._ssim_sum_cuda(a, b, c1, c2))
+        value_p = S.ssim_sum_reference(a, b, c1, c2)
+    a_err = abs(float(value) - float(value_p)) / abs(float(value_p))
+    b_err, b_repeat, b_max = {}, {}, 0.0
+    for gt in (False, True):
+        dx, dy = S._ssim_grad_cuda(a, b, g, c1, c2, gt)
+        again = S._ssim_grad_cuda(a, b, g, c1, c2, gt)
+        dxp, dyp = S.ssim_grad_reference(a, b, g, c1, c2, gt)
+        b_err[f"grad_target={gt}"] = [rel_l2(torch, dx, dxp)] + (
+            [rel_l2(torch, dy, dyp)] if gt else [])
+        b_repeat[f"grad_target={gt}"] = torch.equal(dx, again[0]) and (
+            not gt or torch.equal(dy, again[1]))
+        if not gt:
+            b_max = float((dx - dxp).abs().max())
+        del dx, dy, again, dxp, dyp
+    v_c, ux, _ = S._ssim_value_grad_cuda(a, b, c1, c2, False)
+    c_repeat = torch.equal(ux, S._ssim_value_grad_cuda(a, b, c1, c2,
+                                                       False)[1])
+    ux_b, _ = S._ssim_grad_cuda(a, b, one, c1, c2, False)
+    _, uxp, _ = S.ssim_value_grad_reference(a, b, c1, c2, False)
+    c_value_err = abs(float(v_c) - float(value)) / abs(float(value))
+    c_grad_err = rel_l2(torch, ux, ux_b)
+    c_plain_err = rel_l2(torch, ux, uxp)
+    c_max = float((ux - uxp).abs().max())
+    del ux, ux_b, uxp
+
+    # the one-pass path through the entry point
+    x = a.clone().requires_grad_(True)
+    y = b.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    dx_path, dy_path = torch.autograd.grad(
+        1.0 - S.fused_ssim(x, y, grad_target=False, precompute_grad=True),
+        [x, y])
+    torch.cuda.synchronize()
+    vg_launches = {k.symbol: k.launches for k in M.ALL_KERNELS}
+    target_zero = not dy_path.any()
+    del x, y, dx_path, dy_path
+
+    b4a_ms = cuda_ms(torch, lambda: S._ssim_sum_cuda(a, b, c1, c2), iters=10)
+    b4b_ms = cuda_ms(torch, lambda: S._ssim_grad_cuda(a, b, g, c1, c2,
+                                                      False), iters=10)
+    b4b_target_ms = cuda_ms(torch, lambda: S._ssim_grad_cuda(
+        a, b, g, c1, c2, True), iters=10)
+    b4c_ms = cuda_ms(torch, lambda: S._ssim_value_grad_cuda(
+        a, b, c1, c2, False), iters=10)
+    with torch.no_grad():
+        b4a_plain_ms = cuda_ms(torch, lambda: S.ssim_sum_reference(
+            a, b, c1, c2), iters=3)
+    b4b_plain_ms = cuda_ms(torch, lambda: S.ssim_grad_reference(
+        a, b, g, c1, c2, False), iters=2)
+    b4c_plain_ms = cuda_ms(torch, lambda: S.ssim_value_grad_reference(
+        a, b, c1, c2, False), iters=2)
+    px = 3 * height * width
+    # B4a reads the two images; B4b and B4c read them and write the
+    # prediction's gradient
+    b4a_bound, b4a_by = bound(2 * px * 4, B4A_OPS_PER_PIXEL * px)
+    b4b_bound, b4b_by = bound(3 * px * 4, B4B_OPS_PER_PIXEL * px)
+    b4c_bound, b4c_by = bound(3 * px * 4, B4C_OPS_PER_PIXEL * px)
+    rows = [
+        dict(name="B4a ssim_sum", route="cuda",
+             source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4A_REPLACES,
+             launches=None, max_abs_err=abs(float(value) - float(value_p)),
+             ms=b4a_ms, plain_ms=b4a_plain_ms, bound_ms=b4a_bound,
+             bound_by=b4a_by, library_ms=None),
+        dict(name="B4b ssim_grad", route="cuda",
+             source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4B_REPLACES,
+             launches=None, max_abs_err=b_max, ms=b4b_ms,
+             plain_ms=b4b_plain_ms, bound_ms=b4b_bound, bound_by=b4b_by,
+             library_ms=None),
+        dict(name="B4c ssim_value_grad", route="cuda",
+             source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4C_REPLACES,
+             launches=vg_launches["ssim_value_grad"], max_abs_err=c_max,
+             ms=b4c_ms, plain_ms=b4c_plain_ms, bound_ms=b4c_bound,
+             bound_by=b4c_by, library_ms=None),
+    ]
+    emit("ssim_kernels", shape=[3, height, width], kernels=rows,
+         b4a_value_rel_err=a_err, b4a_bit_equal_on_repeat=a_repeat,
+         b4b_grad_rel_l2=b_err, b4b_bit_equal_on_repeat=b_repeat,
+         b4b_grad_target_ms=b4b_target_ms,
+         b4c_value_rel_err_vs_b4a=c_value_err,
+         b4c_grad_rel_l2_vs_b4b=c_grad_err,
+         b4c_grad_rel_l2_vs_plain=c_plain_err,
+         b4c_bit_equal_on_repeat=c_repeat,
+         one_pass_path_launches=vg_launches,
+         target_grad_exactly_zero=target_zero,
+         gradient_shape="(3, H, W): no storage outside the image",
+         library_ms_null_reason="no single PyTorch call computes SSIM",
+         tolerance=("B4a value rel 1e-5; B4b gradient relative L2 1e-4; "
+                    "B4c vs B4a value rel 1e-6, vs B4b gradient relative "
+                    "L2 1e-5; bit-equal on repeat"),
+         card=card)
+    check(a_err <= 1e-5 and a_repeat,
+          f"B4a disagrees with its plain version: {a_err}, {a_repeat}")
+    check(max(e for v in b_err.values() for e in v) <= 1e-4
+          and all(b_repeat.values()),
+          f"B4b disagrees with its plain version: {b_err}, {b_repeat}")
+    check(c_value_err <= 1e-6 and c_grad_err <= 1e-5 and c_plain_err <= 1e-4
+          and c_repeat,
+          f"B4c disagrees with B4a/B4b or its plain version: {c_value_err}, "
+          f"{c_grad_err}, {c_plain_err}, {c_repeat}")
+    check(vg_launches["ssim_value_grad"] == 1
+          and vg_launches["ssim_sum"] == vg_launches["ssim_grad"] == 0,
+          f"one-pass SSIM path: {vg_launches}")
+    check(target_zero, "SSIM: the target's gradient is not 0")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -471,7 +658,7 @@ def main() -> int:
         random_point_cloud, ring_cameras,
     )
     from intro_to_gaussian_splatting_tpu_torch.models import (
-        GaussianModel, init_from_points, make_camera,
+        GaussianModel, init_from_points, make_camera, stack_cameras,
     )
     from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
         PARAM_NAMES,
@@ -480,6 +667,7 @@ def main() -> int:
     from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as FL
     from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as R
     from intro_to_gaussian_splatting_tpu_torch.ops import relayout as L
+    from intro_to_gaussian_splatting_tpu_torch.ops import ssim as S
     from intro_to_gaussian_splatting_tpu_torch.train import densify as D
     from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
     from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
@@ -496,17 +684,18 @@ def main() -> int:
     import numpy as np
 
     M = types.SimpleNamespace(
-        R=R, L=L, FL=FL, D=D, T=T, TrainConfig=TrainConfig,
+        R=R, L=L, FL=FL, S=S, D=D, T=T, TrainConfig=TrainConfig,
         PARAM_NAMES=PARAM_NAMES, tile_grid=tile_grid,
         num_groups_for=num_groups_for, bin_gaussians=bin_gaussians,
         project_gaussians=project_gaussians, GRAD_ROWS=GRAD_ROWS,
         ALL_KERNELS=(R.RASTERIZE_FWD, R.RASTERIZE_BWD, FL.FUSED_LOSS,
-                     L.UNTILE_CHW, L.TILE_CHW))
+                     L.UNTILE_CHW, L.TILE_CHW, S.SSIM_SUM, S.SSIM_GRAD,
+                     S.SSIM_VALUE_GRAD))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
     t0 = time.perf_counter()
-    sources = [k.source for k in M.ALL_KERNELS]
+    sources = list(dict.fromkeys(k.source for k in M.ALL_KERNELS))
     cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     emit("device", card=card, name=torch.cuda.get_device_name(0),
@@ -602,6 +791,75 @@ def main() -> int:
     check(max(grad_err.values()) <= 1e-4,
           f"small_train: gradients disagree with the CPU path: {grad_err}")
     check(repeat, "small_train: two backward passes on the card differ")
+
+    # -- the same scene, one split-loss step (fused_loss=False: tile L1, B5
+    # untile, B4a; back through B4b, B5-tile and B2) on the card against
+    # the CPU path, and bit for bit the same on repeat
+    split_cfg = TrainConfig(fused_loss=False)
+
+    def split_grads(dev):
+        model = small_model(dev, train_arrays)
+        cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, qvec, tvec,
+                          device=dev)
+        chw = target_small.to(dev)
+        hwc = chw.permute(1, 2, 0).contiguous()
+        before = {k.symbol: k.launches for k in M.ALL_KERNELS}
+        loss, _, _, _, grads = T.camera_loss_and_grads(
+            model, cam, R.image_to_tiles(hwc, small_cfg),
+            R.tile_pixel_mask(h, w, small_cfg, dev), chw, small_cfg,
+            split_cfg)
+        launched = {k.symbol: k.launches - before[k.symbol]
+                    for k in M.ALL_KERNELS}
+        return loss.cpu(), {k: v.cpu() for k, v in grads.items()}, launched
+
+    (loss_c, grads_c, launched), (loss_h, grads_h, _), (loss_2, grads_2, _) \
+        = (split_grads(dev) for dev in ("cuda", "cpu", "cuda"))
+    grad_err = {k: rel_l2(torch, grads_c[k], grads_h[k]) for k in grads_h}
+    repeat = (all(torch.equal(grads_c[k], grads_2[k]) for k in grads_c)
+              and torch.equal(loss_c, loss_2))
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    emit("small_train_split", loss_card=float(loss_c),
+         loss_cpu=float(loss_h), loss_rel_err=loss_err,
+         grad_rel_l2=grad_err, backward_bit_equal_on_repeat=repeat,
+         launches=launched,
+         tolerance="loss rel 1e-5, gradients relative L2 1e-4")
+    check(loss_err <= 1e-5,
+          "small_train_split: loss disagrees with the CPU path")
+    check(max(grad_err.values()) <= 1e-4,
+          f"small_train_split: gradients disagree with the CPU path: "
+          f"{grad_err}")
+    check(repeat, "small_train_split: two passes on the card differ")
+    check(launched["ssim_sum"] == launched["ssim_grad"] == 1
+          and launched["fused_loss"] == 0,
+          f"small_train_split: launches {launched}")
+
+    # -- train_step_batched on the card: one Adam step on the mean of two
+    # cameras' gradients, read back from the first moments (mu = 0.1 g)
+    poses = ring_cameras(2, w, h, radius=5.0, z=1.0, seed=4)
+    cams = [make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, q, t,
+                        device="cuda") for q, t in poses]
+    model = small_model("cuda", train_arrays)
+    targets = torch.stack([target_small, target_small.flip(2)]).cuda()
+    tcfg = TrainConfig()
+    per_camera = [T.camera_loss_and_grads(model, c, None, None, t, small_cfg,
+                                          tcfg)[4]
+                  for c, t in zip(cams, targets)]
+    mean = {k: (per_camera[0][k] + per_camera[1][k]) / 2
+            for k in PARAM_NAMES}
+    tx = T.make_optimizer(tcfg, 2.0)
+    state = tx.init({k: getattr(model, k) for k in PARAM_NAMES})
+    _, state, dstate, metrics = T.train_step_batched(
+        model, state, D.DensifyState.zero(model.capacity, "cuda"),
+        stack_cameras(cams), None, None, targets, small_cfg, tcfg, tx)
+    batched_err = {k: rel_l2(torch, state[k].mu / (1 - T.ADAM_B1), mean[k])
+                   for k in PARAM_NAMES}
+    visible_twice = int((dstate.count == 2).sum())
+    emit("small_batched", cameras=2, grad_rel_l2_vs_mean=batched_err,
+         loss=float(metrics["loss"]), gaussians_seen_by_both=visible_twice,
+         tolerance="relative L2 1e-6")
+    check(max(batched_err.values()) <= 1e-6,
+          f"small_batched: not the mean gradient: {batched_err}")
+    check(visible_twice > 0, "small_batched: densify counts not per camera")
 
     # -- the Trainer loop on the card: the same scene in a pool with free
     # slots, densify every 2 steps from step 2, an opacity reset at step 5
@@ -789,8 +1047,43 @@ def main() -> int:
         del g_img
         torch.cuda.empty_cache()
 
+    # -- the split-loss SSIM kernels at the training path's size, then the
+    # split-loss and batched training paths at the ref_init scene
+    b4_rows = ssim_kernels(torch, M, height, width, card)
+    torch.cuda.empty_cache()
+    cfg = RasterizerConfig()
+    model = init_from_points(xyz, rgb, device="cuda")
+    split_step, _ = make_step(
+        M, T.train_step, model, cam,
+        (R.image_to_tiles(target_hwc, cfg),
+         R.tile_pixel_mask(height, width, cfg, "cuda"), target),
+        cfg, TrainConfig(fused_loss=False))
+    one_each = {k.symbol: 1 for k in (R.RASTERIZE_FWD, R.RASTERIZE_BWD,
+                                      S.SSIM_SUM, S.SSIM_GRAD, L.UNTILE_CHW,
+                                      L.TILE_CHW)}
+    split_launches = run_steps(torch, M, "train_split_ref_init", split_step,
+                               model, dict(one_each, fused_loss=0), 10, mpix,
+                               card)
+    b4_rows[0]["launches"] = split_launches["ssim_sum"]
+    b4_rows[1]["launches"] = split_launches["ssim_grad"]
+    del split_step
+    torch.cuda.empty_cache()
+
+    model = init_from_points(xyz, rgb, device="cuda")
+    cams = stack_cameras([
+        make_camera(focal, focal, width, height, q, t, device="cuda")
+        for q, t in ring_cameras(2, width, height, radius=14.0, z=3.0,
+                                 seed=0)])
+    batched_step, _ = make_step(
+        M, T.train_step_batched, model, cams,
+        (None, None, torch.stack([target, target.flip(2)])), cfg,
+        TrainConfig())
+    run_steps(torch, M, "train_batched_ref_init", batched_step, model,
+              {"rasterize_fwd": 2, "rasterize_bwd": 2, "fused_loss": 2}, 5,
+              2 * mpix, card)
+
     print(card, flush=True)
-    print(json.dumps({"kernels": summary["ref_init"]}), flush=True)
+    print(json.dumps({"kernels": summary["ref_init"] + b4_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

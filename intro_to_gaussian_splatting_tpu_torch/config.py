@@ -15,10 +15,9 @@ they mean:
   * ``accum_precision``: ignored. The CUDA kernel always accumulates in plain
     f32 arithmetic, which is what ``"highest"`` means on the TPU.
 
-``TrainConfig`` has every field and default of the JAX package's. This
-slice trains one camera per step through the fused loss: ``camera_batch``
-> 1 (batched steps) and ``fused_loss=False`` with ``ssim_weight`` > 0 (the
-split loss, kernels B4a-c) raise in the trainer until their slices land.
+``TrainConfig`` has every field and default of the JAX package's, and the
+trainer takes each of them but ``checkpoint_every`` / ``checkpoint_keep``
+(checkpointing comes with a later slice).
 """
 
 from __future__ import annotations
@@ -110,7 +109,7 @@ class TrainConfig:
     lr_shN: float = 2.5e-3 / 20.0
     ssim_weight: float = 0.2        # loss = (1-w)*L1 + w*(1-SSIM)
     # True: the fused tile-space L1+SSIM value and gradient (kernel B3);
-    # False: the split path (tile L1 + untile + SSIM), a later slice
+    # False: the split path (tile L1 + untile + SSIM, kernels B4a and B4b)
     fused_loss: bool = True
     sh_degree: int = 3
     sh_degree_interval: int = 1000  # raise active SH degree every N steps
@@ -123,7 +122,7 @@ class TrainConfig:
     prune_opacity_threshold: float = 5e-3
     opacity_reset_interval: int = 3000
     capacity_multiplier: float = 4.0  # fixed pool = multiplier * init count
-    # cameras averaged per optimizer step; only 1 in this slice
+    # cameras averaged per optimizer step (train_step_batched when > 1)
     camera_batch: int = 1
     seed: int = 0
     # periodic full-state saves (checkpointing comes with a later slice)

@@ -14,7 +14,10 @@ import numpy as np
 import torch
 
 from intro_to_gaussian_splatting_tpu_torch.device import resolve_device
-from intro_to_gaussian_splatting_tpu_torch.models.camera import Camera
+from intro_to_gaussian_splatting_tpu_torch.models.camera import (
+    CAMERA_TENSORS,
+    Camera,
+)
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_NAMES,
     GaussianModel,
@@ -24,8 +27,6 @@ from intro_to_gaussian_splatting_tpu_torch.train.trainer import (
     AdamGroup,
     OptState,
 )
-CAMERA_TENSORS = ("world2view", "full_proj", "fx", "fy", "tan_fovx",
-                  "tan_fovy", "cam_center")
 
 
 def model_from_numpy(params: Mapping[str, np.ndarray], active: np.ndarray,

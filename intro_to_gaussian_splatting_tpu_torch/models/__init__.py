@@ -1,7 +1,9 @@
 from intro_to_gaussian_splatting_tpu_torch.models.camera import (
     Camera,
     camera_from_colmap,
+    index_camera,
     make_camera,
+    stack_cameras,
 )
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
     GaussianModel,
@@ -18,7 +20,9 @@ from intro_to_gaussian_splatting_tpu_torch.models.sh import (
 __all__ = [
     "Camera",
     "camera_from_colmap",
+    "index_camera",
     "make_camera",
+    "stack_cameras",
     "GaussianModel",
     "init_from_points",
     "knn_mean_scale",

@@ -39,6 +39,10 @@ class Camera:
     height: int
 
 
+CAMERA_TENSORS = ("world2view", "full_proj", "fx", "fy", "tan_fovx",
+                  "tan_fovy", "cam_center")
+
+
 def quat_to_rotmat(q: np.ndarray) -> np.ndarray:
     """wxyz quaternion (4,) -> rotation matrix (3, 3); normalizes first."""
     q = np.asarray(q, dtype=np.float64)
@@ -121,6 +125,24 @@ def world2view_recentered(
     c2w = np.linalg.inv(Rt)
     c2w[:3, 3] = (c2w[:3, 3] + np.asarray(translate, np.float64)) * scale
     return np.linalg.inv(c2w)
+
+
+def stack_cameras(cams) -> Camera:
+    """Stack same-resolution cameras into one batched Camera (a leading
+    camera dimension on every tensor)."""
+    w, h = cams[0].width, cams[0].height
+    if not all(c.width == w and c.height == h for c in cams):
+        raise ValueError("stack_cameras requires equal resolutions; group "
+                         "by size first")
+    return Camera(**{name: torch.stack([getattr(c, name) for c in cams])
+                     for name in CAMERA_TENSORS}, width=w, height=h)
+
+
+def index_camera(cams: Camera, i: int) -> Camera:
+    """Camera ``i`` of a stacked Camera."""
+    return Camera(**{name: getattr(cams, name)[i]
+                     for name in CAMERA_TENSORS},
+                  width=cams.width, height=cams.height)
 
 
 def camera_from_colmap(camera, image, downscale: int = 1,

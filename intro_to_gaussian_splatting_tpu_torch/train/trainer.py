@@ -1,7 +1,8 @@
-"""3DGS optimization loop: Adam + densify/prune, one camera per step.
+"""3DGS optimization loop: Adam + densify/prune, one or B cameras per step.
 
 The JAX package's train/trainer.py (``make_optimizer``, ``train_step``,
-``Trainer``, ``scene_extent_of``) in PyTorch, for one card:
+``train_step_batched``, ``Trainer``, ``scene_extent_of``) in PyTorch, for
+one card:
 
   * ``make_optimizer`` gives optax's numbers: Adam (b1 0.9, b2 0.999, eps
     1e-15) per parameter group, the means' learning rate decaying
@@ -11,21 +12,25 @@ The JAX package's train/trainer.py (``make_optimizer``, ``train_step``,
     is why the update is a plain function on tensors in optax's order and
     not ``torch.optim.Adam``.
   * ``train_step`` renders in the rasterizer's tile layout (kernel B1,
-    backward kernel B2), takes the loss and its pixel gradient from kernel
-    B3 (``fused_loss=True``, ``ssim_weight`` > 0, the default) or from the
-    plain tile L1 (``ssim_weight`` = 0, as the JAX package does), and
-    differentiates a zero ``mean2d_offset`` probe for the screen-space
+    backward kernel B2) and takes the loss and its pixel gradient from
+    kernel B3 (``fused_loss=True``, ``ssim_weight`` > 0, the default), from
+    the split path (``fused_loss=False``: tile L1, the untile relayout B5,
+    whose gradient is B5-tile, and the fused SSIM, kernels B4a and B4b) or
+    from the plain tile L1 (``ssim_weight`` = 0), as the JAX package does.
+    It differentiates a zero ``mean2d_offset`` probe for the screen-space
     gradients densification reads. Parameters are updated in place; dead
     slots keep theirs while their moments still update.
-  * ``Trainer`` drives the loop: camera order from ``default_rng(seed)``, a
-    byte-bounded LRU cache of targets on the card, a running count of
-    pair-pool overflows kept on the card and read only at log and densify
-    boundaries (doubling the pool when it grew), densify / prune / opacity
-    reset, and JSONL metrics.
+  * ``train_step_batched`` takes one Adam step on the mean gradient of B
+    stacked same-resolution cameras, rendered and differentiated in order.
+  * ``Trainer`` drives the loop: camera order (or camera-group order, with
+    ``camera_batch`` > 1) from ``default_rng(seed)``, a byte-bounded LRU
+    cache of targets on the card, a running count of pair-pool overflows
+    kept on the card and read only at log and densify boundaries (doubling
+    the pool when it grew), densify / prune / opacity reset, and JSONL
+    metrics.
 
-Batched steps (``camera_batch`` > 1), the split loss with SSIM
-(``fused_loss=False``, kernels B4a-c), a device mesh and checkpointing come
-with later slices; the first three raise ``NotImplementedError``.
+A device mesh and checkpointing come with later slices; a mesh raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +48,11 @@ from intro_to_gaussian_splatting_tpu_torch.config import (
     RasterizerConfig,
     TrainConfig,
 )
-from intro_to_gaussian_splatting_tpu_torch.models.camera import Camera
+from intro_to_gaussian_splatting_tpu_torch.models.camera import (
+    Camera,
+    index_camera,
+    stack_cameras,
+)
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
     PARAM_NAMES,
     GaussianModel,
@@ -57,6 +66,10 @@ from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
     render_tiles,
     tile_pixel_mask,
 )
+from intro_to_gaussian_splatting_tpu_torch.ops.relayout import (
+    untile_chw_fast,
+)
+from intro_to_gaussian_splatting_tpu_torch.ops.ssim import fused_ssim
 from intro_to_gaussian_splatting_tpu_torch.train import densify as D
 from intro_to_gaussian_splatting_tpu_torch.train.loss import (
     psnr_from_mse,
@@ -175,17 +188,6 @@ def make_optimizer(config: TrainConfig, scene_extent: float) -> Optimizer:
 # One step
 # ---------------------------------------------------------------------------
 
-def check_supported(tcfg: TrainConfig) -> None:
-    if tcfg.camera_batch > 1:
-        raise NotImplementedError(
-            "camera_batch > 1 (train_step_batched) comes with the batched-"
-            "steps slice of the port")
-    if tcfg.ssim_weight > 0.0 and not tcfg.fused_loss:
-        raise NotImplementedError(
-            "fused_loss=False with SSIM (the split loss, kernels B4a-c) "
-            "comes with the split-loss slice of the port")
-
-
 def camera_loss_and_grads(model: GaussianModel, camera: Camera,
                           target_tiles: Optional[torch.Tensor],
                           target_mask: Optional[torch.Tensor],
@@ -196,11 +198,12 @@ def camera_loss_and_grads(model: GaussianModel, camera: Camera,
     (loss, mse, tiles, aux, grads). ``grads`` holds one tensor per
     parameter and ``"probe"``, the (N, 2) screen-space gradient.
 
-    Fused path (``ssim_weight`` > 0): ``target_image`` is the (3, H, W)
-    target, kernel B3 gives loss, MSE and pixel gradient. Otherwise the
-    tile L1 against ``target_tiles`` / ``target_mask`` (``mse`` is None).
+    Fused path (``fused_loss`` and ``ssim_weight`` > 0): ``target_image``
+    is the (3, H, W) target, kernel B3 gives loss, MSE and pixel gradient.
+    Split path: the tile L1 against ``target_tiles`` / ``target_mask`` and,
+    with ``ssim_weight`` > 0, 1 - SSIM of the untiled colour channels
+    against ``target_image`` (``mse`` is None).
     """
-    check_supported(tcfg)
     h, w = camera.height, camera.width
     ts = rcfg.tile_size
     ntx, nty = tile_grid(w, h, ts)
@@ -209,11 +212,17 @@ def camera_loss_and_grads(model: GaussianModel, camera: Camera,
     tiles, aux = render_tiles(model, camera, rcfg,
                               active_sh_degree=active_sh_degree,
                               return_aux=True, mean2d_offset=probe)
-    if tcfg.ssim_weight > 0.0:
+    wt = tcfg.ssim_weight
+    if wt > 0.0 and tcfg.fused_loss:
         loss, mse = fused_photometric_loss(tiles, target_image, ntx, nty, ts,
-                                           h, w, tcfg.ssim_weight)
+                                           h, w, wt)
     else:
         loss, mse = tile_l1(tiles, target_tiles, target_mask), None
+        if wt > 0.0:
+            img = untile_chw_fast(tiles, ntx, nty, ts, h, w)
+            loss = ((1.0 - wt) * loss
+                    + wt * (1.0 - fused_ssim(img, target_image,
+                                             grad_target=False)))
     inputs = [getattr(model, name) for name in PARAM_NAMES] + [probe]
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = {name: torch.zeros_like(x) if g is None else g
@@ -236,13 +245,55 @@ def train_step(model: GaussianModel, opt_state: OptState,
         active_sh_degree)
     opt_state = tx.step(model, grads, opt_state)
     dstate = D.accumulate(dstate, grads["probe"], aux["visible"])
-    if mse is not None:
-        psnr_val = psnr_from_mse(mse)
-    else:
-        psnr_val = tile_psnr(tiles, target_tiles, target_mask)
-    metrics = dict(loss=loss, psnr=psnr_val,
+    metrics = dict(loss=loss,
+                   psnr=_psnr(mse, tiles, target_tiles, target_mask),
                    num_active=model.active.sum(),
                    overflowed=aux["overflowed"])
+    return model, opt_state, dstate, metrics
+
+
+def _psnr(mse, tiles, target_tiles, target_mask):
+    if mse is not None:
+        return psnr_from_mse(mse)
+    return tile_psnr(tiles, target_tiles, target_mask)
+
+
+def train_step_batched(model: GaussianModel, opt_state: OptState,
+                       dstate: D.DensifyState, cameras: Camera,
+                       target_tiles: Optional[torch.Tensor],
+                       target_mask: Optional[torch.Tensor],
+                       target_images: Optional[torch.Tensor],
+                       rcfg: RasterizerConfig, tcfg: TrainConfig,
+                       tx: Optimizer, active_sh_degree: int = 0):
+    """One optimization step on the mean gradient of B stacked
+    same-resolution cameras (``stack_cameras``). The targets carry a
+    leading B dimension in the layout the loss needs (see
+    ``camera_loss_and_grads``; None where unused). The cameras are rendered
+    and differentiated in order; their gradients are summed in that order
+    and divided by B, and the densify statistics accumulate per camera, as
+    B sequential steps would. Loss and PSNR are the means over the cameras,
+    ``overflowed`` is true if any camera's pair pool overflowed."""
+    b = cameras.world2view.shape[0]
+
+    def pick(t, i):
+        return None if t is None else t[i]
+
+    gsum, loss_sum, psnr_sum, overflowed = None, 0.0, 0.0, False
+    for i in range(b):
+        tt, tm = pick(target_tiles, i), pick(target_mask, i)
+        loss, mse, tiles, aux, grads = camera_loss_and_grads(
+            model, index_camera(cameras, i), tt, tm, pick(target_images, i),
+            rcfg, tcfg, active_sh_degree)
+        dstate = D.accumulate(dstate, grads.pop("probe"), aux["visible"])
+        gsum = grads if gsum is None else {
+            name: gsum[name] + g for name, g in grads.items()}
+        loss_sum = loss_sum + loss
+        psnr_sum = psnr_sum + _psnr(mse, tiles, tt, tm)
+        overflowed = overflowed | aux["overflowed"]
+    opt_state = tx.step(model, {name: g / b for name, g in gsum.items()},
+                        opt_state)
+    metrics = dict(loss=loss_sum / b, psnr=psnr_sum / b,
+                   num_active=model.active.sum(), overflowed=overflowed)
     return model, opt_state, dstate, metrics
 
 
@@ -253,7 +304,10 @@ def train_step(model: GaussianModel, opt_state: OptState,
 @dataclasses.dataclass
 class Trainer:
     """Drives the loop on the model's device; holds the host-side state
-    (step counter, camera order, the generator of the split noise)."""
+    (step counter, camera order, the generator of the split noise). With
+    ``tcfg.camera_batch`` > 1 every step is a ``train_step_batched`` over a
+    fixed group of consecutive cameras; the last group wraps around when
+    the batch does not divide the camera count."""
 
     model: GaussianModel
     cameras: list            # list[Camera]
@@ -274,7 +328,6 @@ class Trainer:
             raise NotImplementedError(
                 "training over a device mesh (parallel/) comes with a later "
                 "slice of the port")
-        check_supported(self.tcfg)
         self.device = self.model.device
         self.tx = make_optimizer(self.tcfg, self.scene_extent)
         self.opt_state = self.tx.init(
@@ -284,7 +337,8 @@ class Trainer:
             self.tcfg.seed)
         self.step = 0
         self.history = []
-        # cam_idx -> (entry, nbytes), least recently used first
+        # cam_idx or ("batch", *group) -> (entry, nbytes), least recently
+        # used first
         self._tiled = collections.OrderedDict()
         self._tiled_bytes = 0
         self._masks = {}     # (H, W) -> tile_pixel_mask
@@ -313,30 +367,69 @@ class Trainer:
             self._tiled_bytes -= old_bytes
         return entry
 
-    def _target_for(self, cam_idx: int):
-        """(target_tiles, target_mask, target_image) of one camera in the
-        layout its loss needs, LRU-cached on the device: the (3, H, W)
-        image for the fused loss, the tiles (and the shared pixel mask)
-        for the tile L1."""
-        cam = self.cameras[cam_idx]
-        h, w = cam.height, cam.width
-        fused = self.tcfg.ssim_weight > 0.0
-        entry = self._cache_get(cam_idx)
-        if entry is None:
-            target = torch.as_tensor(self.targets[cam_idx],
-                                     dtype=torch.float32, device=self.device)
-            if fused:
-                entry = target.permute(2, 0, 1).contiguous()
-            else:
-                entry = image_to_tiles(target, self.rcfg)
-            self._cache_put(cam_idx, entry,
-                            entry.numel() * entry.element_size())
-        if fused:
-            return None, None, entry
+    @property
+    def _fused(self) -> bool:
+        return self.tcfg.ssim_weight > 0.0 and self.tcfg.fused_loss
+
+    def _target(self, cam_idx: int) -> torch.Tensor:
+        return torch.as_tensor(self.targets[cam_idx], dtype=torch.float32,
+                               device=self.device)
+
+    def _mask(self, h: int, w: int) -> torch.Tensor:
         if (h, w) not in self._masks:
             self._masks[(h, w)] = tile_pixel_mask(h, w, self.rcfg,
                                                   self.device)
-        return entry, self._masks[(h, w)], None
+        return self._masks[(h, w)]
+
+    def _layouts(self, target: torch.Tensor):
+        """(tiles, image) of an (H, W, 3) target in the layouts its loss
+        needs, None where unused: the (3, H, W) image alone for the fused
+        loss; the tiles, and the image when SSIM is on, for the split
+        path."""
+        chw = (target.permute(2, 0, 1).contiguous()
+               if self.tcfg.ssim_weight > 0.0 else None)
+        if self._fused:
+            return None, chw
+        return image_to_tiles(target, self.rcfg), chw
+
+    @staticmethod
+    def _nbytes(entry) -> int:
+        return sum(t.numel() * t.element_size() for t in entry
+                   if isinstance(t, torch.Tensor))
+
+    def _target_for(self, cam_idx: int):
+        """(target_tiles, target_mask, target_image) of one camera, None
+        where its loss needs none, LRU-cached on the device."""
+        cam = self.cameras[cam_idx]
+        entry = self._cache_get(cam_idx)
+        if entry is None:
+            entry = self._layouts(self._target(cam_idx))
+            self._cache_put(cam_idx, entry, self._nbytes(entry))
+        tiles, img = entry
+        if tiles is None:
+            return None, None, img
+        return tiles, self._mask(cam.height, cam.width), img
+
+    def _batched_target_for(self, group):
+        """Stacked cameras and targets (tiles, masks, images; None where
+        unused) of one fixed camera group, LRU-cached on the device."""
+        key = ("batch",) + tuple(group)
+        entry = self._cache_get(key)
+        if entry is None:
+            cams = stack_cameras([self.cameras[i] for i in group])
+            tiles, imgs = zip(*(self._layouts(self._target(i))
+                                for i in group))
+            masks = None
+            if tiles[0] is not None:
+                mask = self._mask(cams.height, cams.width)
+                masks = mask.expand((len(group),) + tuple(mask.shape))
+                tiles = torch.stack(tiles)
+            else:
+                tiles = None
+            imgs = None if imgs[0] is None else torch.stack(imgs)
+            entry = (cams, tiles, masks, imgs)
+            self._cache_put(key, entry, self._nbytes((tiles, imgs)))
+        return entry
 
     @property
     def active_sh_degree(self) -> int:
@@ -347,18 +440,24 @@ class Trainer:
 
     def run(self, iterations: Optional[int] = None):
         iterations = iterations or self.tcfg.iterations
+        bsz = self.tcfg.camera_batch
+        n_cams = len(self.cameras)
+        n_units = max(1, -(-n_cams // bsz)) if bsz > 1 else n_cams
         order = np.random.default_rng(self.tcfg.seed).permutation(
-            np.arange(iterations) % len(self.cameras))
+            np.arange(iterations) % n_units)
         t0 = time.time()
         for it in range(iterations):
-            cam_idx = int(order[it])
-            target_tiles, target_mask, target_image = self._target_for(
-                cam_idx)
-            self.model, self.opt_state, self.dstate, metrics = train_step(
-                self.model, self.opt_state, self.dstate,
-                self.cameras[cam_idx], target_tiles, target_mask,
-                target_image, self.rcfg, self.tcfg, self.tx,
-                self.active_sh_degree)
+            unit = int(order[it])
+            if bsz > 1:
+                group = tuple((unit * bsz + k) % n_cams for k in range(bsz))
+                cams, tt, tm, ti = self._batched_target_for(group)
+                step, camera = train_step_batched, cams
+            else:
+                tt, tm, ti = self._target_for(unit)
+                step, camera = train_step, self.cameras[unit]
+            self.model, self.opt_state, self.dstate, metrics = step(
+                self.model, self.opt_state, self.dstate, camera, tt, tm, ti,
+                self.rcfg, self.tcfg, self.tx, self.active_sh_degree)
             self.step += 1
             self._overflow_count += metrics["overflowed"].to(torch.int32)
             self._maybe_densify()

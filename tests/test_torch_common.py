@@ -5,6 +5,12 @@ The parity tests build one scene with numpy from a seed (tests/scenes.py),
 run it through the JAX package and, converted through numpy, through the
 port on the CPU, and compare. The CUDA kernels' tests are in
 test_torch_kernels.py, which imports no JAX so that it runs on the card.
+
+The JAX references run once each, on small inputs, with their Pallas
+kernels in interpret mode: tracing and XLA's compile take nearly all their
+time. ``jax_fast`` compiles them without LLVM's optimizations (the same
+arithmetic, about a third less time), and each file computes a reference
+once and shares it between the tests that read it.
 """
 
 import dataclasses
@@ -25,6 +31,19 @@ from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
     ProjectedGaussians,
 )
 from tests.scenes import small_scene
+
+
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_fast(fn, *args, **static):
+    """``fn(*args, **static)`` through ``jax.jit`` compiled with
+    FAST_COMPILE; ``static`` are the static arguments (already declared if
+    ``fn`` is jitted)."""
+    if not hasattr(fn, "lower"):
+        fn = jax.jit(fn, static_argnames=tuple(static))
+    return fn.lower(*args, **static).compile(FAST_COMPILE)(*args)
 
 
 def port_model(model, device="cpu"):

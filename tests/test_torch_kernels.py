@@ -12,10 +12,12 @@ is no card. The CPU tests check what the wrappers do without one: the plain
 versions run and nothing is built.
 
 Tolerances: B1 rtol 1e-4 / atol 1e-5 (kernel and plain version round alike,
--fmad=false); B2 and B3 gradients a relative L2 difference <= 1e-4 (the
-kernels sum pixels in a tree, the plain versions with torch.sum or through
-conv2d), B3's value and MSE rel 1e-5; the relayouts exactly equal. Every
-kernel's output is the same bit for bit from one launch to the next.
+-fmad=false); B2, B3 and B4b gradients a relative L2 difference <= 1e-4
+(the kernels sum pixels in a tree, the plain versions with torch.sum or
+through conv2d), B3's value and MSE and B4a's value rel 1e-5; B4c against
+B4a and B4b, value rel 1e-6 and gradient relative L2 1e-5; the relayouts
+exactly equal. Every kernel's output is the same bit for bit from one
+launch to the next.
 """
 
 import numpy as np
@@ -37,6 +39,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
 from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
 from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
+from intro_to_gaussian_splatting_tpu_torch.ops import ssim as ts
 from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
     bin_gaussians,
     num_groups_for,
@@ -107,7 +110,7 @@ def _bins(case, device):
 
 
 KERNELS = (tr.RASTERIZE_FWD, tr.RASTERIZE_BWD, tf.FUSED_LOSS, tl.UNTILE_CHW,
-           tl.TILE_CHW)
+           tl.TILE_CHW, ts.SSIM_SUM, ts.SSIM_GRAD, ts.SSIM_VALUE_GRAD)
 
 
 def rel_l2(got, want):
@@ -148,13 +151,22 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     want = tf.fused_photometric_loss_reference(tiles, g3.abs(), ntx, nty, 16,
                                                32, 48, 0.2)
     assert torch.equal(loss, want[0]) and torch.equal(mse, want[1])
+    pred = img.detach().requires_grad_(True)
+    want = ts.ssim_grad_reference(pred, g3.abs(), 1.0,
+                                  grad_target=False)[0] / (3 * 22 * 38)
+    for precompute in (False, True):
+        dx, = torch.autograd.grad(ts.fused_ssim(
+            pred, g3.abs(), grad_target=False, precompute_grad=precompute),
+            pred)
+        torch.testing.assert_close(dx, want, rtol=1e-6, atol=0.0)
     assert [k.launches for k in KERNELS] == before
 
 
 def test_kernel_build_flags():
     sources = (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
-               tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE)
-    assert [k.source for k in KERNELS] == list(sources)
+               tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
+               ts.SSIM_SOURCE)
+    assert [k.source for k in KERNELS] == list(sources) + [ts.SSIM_SOURCE] * 2
     for src in sources:
         assert src.path.is_file()
         flags = cuda_build.NVCC_FLAGS + src.extra_flags
@@ -163,7 +175,7 @@ def test_kernel_build_flags():
         assert "__expf(" not in src.path.read_text()
         assert src.library().name.startswith(f"lib{src.name}-")
     for src in (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
-                tf.FUSED_LOSS_SOURCE):
+                tf.FUSED_LOSS_SOURCE, ts.SSIM_SOURCE):
         assert "-fmad=false" in src.extra_flags
         assert "atomicAdd" not in src.path.read_text()
 
@@ -347,6 +359,100 @@ def test_train_step_gradients_on_card(cuda_device):
     (loss, mse, grads), (loss2, _, grads2) = runs["cuda"]
     assert float(loss) == pytest.approx(float(cpu_loss), rel=1e-5)
     assert float(mse) == pytest.approx(float(cpu_mse), rel=1e-5)
+    assert torch.equal(loss, loss2)
+    for name in grads:
+        assert rel_l2(grads[name], cpu_grads[name]) <= 1e-4, name
+        assert torch.equal(grads[name], grads2[name]), name
+
+
+def _ssim_images(device, h, w, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.rand((3, h, w), generator=gen)
+    b = (a + 0.2 * torch.randn((3, h, w), generator=gen)).clamp(0.0, 1.0)
+    return a.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(32, 48), (77, 131)])
+def test_b4_kernels_match_plain_on_card(h, w, cuda_device):
+    """B4a, B4b (both grad_target settings) and B4c against their plain
+    versions; B4c against B4a and B4b; each the same on repeat."""
+    a, b = _ssim_images(cuda_device, h, w, 0)
+    c1, c2 = ts.L.C1, ts.L.C2
+    g = torch.tensor(0.7, device=cuda_device)
+    before = [k.launches for k in (ts.SSIM_SUM, ts.SSIM_GRAD,
+                                   ts.SSIM_VALUE_GRAD)]
+    value = ts._ssim_sum_cuda(a, b, c1, c2)
+    assert torch.equal(value, ts._ssim_sum_cuda(a, b, c1, c2))
+    assert float(value) == pytest.approx(
+        float(ts.ssim_sum_reference(a, b)), rel=1e-5)
+    for gt in (False, True):
+        dx, dy = ts._ssim_grad_cuda(a, b, g, c1, c2, gt)
+        again = ts._ssim_grad_cuda(a, b, g, c1, c2, gt)
+        want = ts.ssim_grad_reference(a, b, g, c1, c2, gt)
+        assert torch.equal(dx, again[0])
+        assert rel_l2(dx, want[0]) <= 1e-4
+        if gt:
+            assert torch.equal(dy, again[1])
+            assert rel_l2(dy, want[1]) <= 1e-4
+        else:
+            assert dy is None and again[1] is None
+        v, ux, uy = ts._ssim_value_grad_cuda(a, b, c1, c2, gt)
+        one = ts._ssim_grad_cuda(a, b, torch.ones((), device=cuda_device),
+                                 c1, c2, gt)
+        assert float(v) == pytest.approx(float(value), rel=1e-6)
+        assert rel_l2(ux, one[0]) <= 1e-5
+        assert (uy is None) if not gt else rel_l2(uy, one[1]) <= 1e-5
+    torch.cuda.synchronize()
+    assert [k.launches for k in (ts.SSIM_SUM, ts.SSIM_GRAD,
+                                 ts.SSIM_VALUE_GRAD)] == [
+        before[0] + 2, before[1] + 6, before[2] + 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precompute", [False, True])
+def test_fused_ssim_on_card_matches_cpu(precompute, cuda_device):
+    """``fused_ssim`` under autograd on the card (B4a then B4b, or B4c)
+    against the CPU path."""
+    runs = {}
+    for device in ("cpu", cuda_device):
+        a, b = _ssim_images(device, 45, 70, 1)
+        x = a.requires_grad_(True)
+        value = ts.fused_ssim(x, b, grad_target=False,
+                              precompute_grad=precompute)
+        dx, = torch.autograd.grad(1.0 - value, x)
+        runs[str(device)] = (value.detach().cpu(), dx.cpu())
+    assert float(runs["cuda"][0]) == pytest.approx(float(runs["cpu"][0]),
+                                                   rel=1e-5)
+    assert rel_l2(runs["cuda"][1], runs["cpu"][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_split_train_step_gradients_on_card(cuda_device):
+    """One split-loss step (B1, B5-untile, B4a; B4b, B5-tile, B2) on the
+    card against the CPU path, and bit for bit the same on repeat."""
+    kw = dict(n=200, width=48, height=32, seed=11, scales=(0.08, 0.3))
+    tcfg = TrainConfig(fused_loss=False)
+    runs = {}
+    for device in ("cpu", cuda_device, cuda_device):
+        model, cam = _scene(device, **kw)
+        gen = torch.Generator().manual_seed(3)
+        target = torch.rand((cam.height, cam.width, 3), generator=gen)
+        target = target.to(device)
+        tiles = tr.image_to_tiles(target, CFG)
+        mask = tr.tile_pixel_mask(cam.height, cam.width, CFG, device)
+        before = ts.SSIM_GRAD.launches
+        loss, mse, _, _, grads = T.camera_loss_and_grads(
+            model, cam, tiles, mask, target.permute(2, 0, 1).contiguous(),
+            CFG, tcfg)
+        assert mse is None
+        if device != "cpu":
+            assert ts.SSIM_GRAD.launches == before + 1
+        runs.setdefault(str(device), []).append(
+            (loss.cpu(), {k: v.cpu() for k, v in grads.items()}))
+    (cpu_loss, cpu_grads), = runs["cpu"]
+    (loss, grads), (loss2, grads2) = runs["cuda"]
+    assert float(loss) == pytest.approx(float(cpu_loss), rel=1e-5)
     assert torch.equal(loss, loss2)
     for name in grads:
         assert rel_l2(grads[name], cpu_grads[name]) <= 1e-4, name

@@ -29,7 +29,7 @@ from intro_to_gaussian_splatting_tpu.ops.rasterize_pallas import (
 from intro_to_gaussian_splatting_tpu.train import loss as jl
 from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
 from intro_to_gaussian_splatting_tpu_torch.train import loss as tl
-from tests.test_torch_common import np_
+from tests.test_torch_common import jax_fast, np_
 
 CFG = RasterizerConfig(group_tiles=4, groups_per_step=2)
 
@@ -86,9 +86,9 @@ def test_fused_loss_matches_pallas(h, w):
     wt, ts = 0.2, CFG.tile_size
     ntx, nty, tiles, target, mask3 = _setup(h, w, seed=0)
     tpad = pad_target_chw(jnp.asarray(target), ntx, nty, ts, h, w)
-    (want, want_mse), want_g = jax.value_and_grad(
+    (want, want_mse), want_g = jax_fast(jax.value_and_grad(
         lambda t: jax_fused_loss(t, tpad, ntx, nty, ts, h, w, wt, True),
-        has_aux=True)(jnp.asarray(tiles))
+        has_aux=True), jnp.asarray(tiles))
     x = torch.from_numpy(tiles).requires_grad_(True)
     chw = torch.from_numpy(target.transpose(2, 0, 1).copy())
     loss, mse = tf.fused_photometric_loss(x, chw, ntx, nty, ts, h, w, wt)

@@ -46,10 +46,20 @@ def test_no_file_of_the_port_imports_jax():
     assert not _forbidden("intro_to_gaussian_splatting_tpu_torch.ops")
 
 
-def _run(code_or_args, cwd):
+def _start(code_or_args, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    return subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=120)
+    return subprocess.Popen([sys.executable, *code_or_args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(proc):
+    out, err = proc.communicate(timeout=120)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _run(code_or_args, cwd):
+    return _wait(_start(code_or_args, cwd))
 
 
 def test_importing_the_port_loads_no_jax():
@@ -70,12 +80,14 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
-    r = _run([str(REPO / "chip_smoke.py")], REPO)
-    assert r.returncode != 0
-    assert '"ok"' not in r.stdout
-    # alone in a directory, without the port beside it
+    # in the checkout, and alone in a directory without the port beside it
+    # (the two runs at once)
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((REPO / "chip_smoke.py").read_text())
-    r = _run([str(alone)], tmp_path)
+    procs = [_start([str(REPO / "chip_smoke.py")], REPO),
+             _start([str(alone)], tmp_path)]
+    r, r_alone = (_wait(p) for p in procs)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+    assert r_alone.returncode != 0
+    assert '"ok"' not in r_alone.stdout

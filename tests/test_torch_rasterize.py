@@ -8,9 +8,13 @@ gradient gate, and exact zeros where the kernel must write them. Layout
 helpers and their adjoints: exactly equal (they are permutations). The
 CUDA kernels are held against these plain versions on the card in
 test_torch_kernels.py.
+
+Each case's JAX output and VJP come from one compiled program, shared by
+the forward and the backward test and by the cases of equal shapes.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,37 +40,62 @@ from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
 from intro_to_gaussian_splatting_tpu_torch.ops.projection import GRAD_ROWS
 from tests.scenes import small_scene
-from tests.test_torch_common import np_, port_config
+from tests.test_torch_common import FAST_COMPILE, jax_fast, np_, port_config
 
-CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
+# one tile group per grid step: the JAX kernels unroll their body over the
+# groups of a step, so this keeps their interpret-mode programs small
+CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2,
+                       groups_per_step=1)
 
 CASES = {
     # > 128 pairs in some tiles (several JAX chunks) and early exit
     "multi_chunk_early_exit": (dict(n=400, width=48, height=32, seed=3,
                                     opacity_hi=6.0), CFG),
-    "partial_tiles": (dict(n=80, width=40, height=24, seed=5), CFG),
-    # pixel bbox test, inclusive overlap, the CUDA threshold and alpha_min
+    # as many gaussians as above, so the JAX kernel's shapes and its
+    # compiled program are the same
+    "partial_tiles": (dict(n=400, width=40, height=24, seed=5), CFG),
+    # pixel bbox test, inclusive overlap, the CUDA threshold and alpha_min;
+    # phantom tiles in the last group and two groups per grid step
     "reference_cuda_alpha_min": (dict(n=80, width=48, height=32, seed=7),
                                  dataclasses.replace(
                                      CFG, compat=CompatConfig.REFERENCE_CUDA,
-                                     t_threshold=1e-3,
-                                     alpha_min=1.0 / 255.0)),
+                                     t_threshold=1e-3, alpha_min=1.0 / 255.0,
+                                     group_tiles=4, groups_per_step=2)),
 }
 
 
-# jitted: the eager op-by-op run is several times slower on the CPU
-jax_bin = jax.jit(bin_gaussians, static_argnums=(1, 2, 3))
-jax_rasterize = jax.jit(jr.rasterize_pairs, static_argnums=(2, 3, 4))
-
-
+@functools.lru_cache(maxsize=None)
 def _bins(case):
     scene_kw, cfg = CASES[case]
     raw, cam, model = small_scene(**scene_kw)
     ntx, nty = tile_grid(cam.width, cam.height, cfg.tile_size)
     ng = num_groups_for(ntx * nty, cfg)
-    bins = jax_bin(project_gaussians(model, cam, cfg), cam.width,
-                   cam.height, cfg)
+    bins = jax_fast(lambda: bin_gaussians(project_gaussians(model, cam, cfg),
+                                          cam.width, cam.height, cfg))
     return cfg, ng, bins
+
+
+_COMPILED = {}    # (ng, cfg, pool shape) -> the compiled forward and VJP
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(case):
+    """The Pallas kernel's output and its VJP for a random cotangent of
+    the (NG, 5, GT, 256) output: (out, cotangent, record gradient)."""
+    cfg, ng, bins = _bins(case)
+    g = np.random.default_rng(0).normal(
+        size=(ng, 5, cfg.group_tiles, cfg.tile_size ** 2)).astype(np.float32)
+    key = (ng, cfg, bins.pair_records.shape)
+    if key not in _COMPILED:
+        def fwd_vjp(records, group_starts, g):
+            out, vjp = jax.vjp(lambda r: jr.rasterize_pairs(
+                r, group_starts, ng, cfg, True), records)
+            return out, vjp(g)[0]
+
+        _COMPILED[key] = jax.jit(fwd_vjp).lower(
+            bins.pair_records, bins.group_starts, g).compile(FAST_COMPILE)
+    out, drec = _COMPILED[key](bins.pair_records, bins.group_starts, g)
+    return np.asarray(out), g, np.asarray(drec)
 
 
 def _port_args(bins, device="cpu"):
@@ -77,8 +106,7 @@ def _port_args(bins, device="cpu"):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_rasterize_pairs_matches_pallas(case):
     cfg, ng, bins = _bins(case)
-    want = np.asarray(jax_rasterize(bins.pair_records, bins.group_starts,
-                                    ng, cfg, True))
+    want = _jax_run(case)[0]
     got = tr.rasterize_pairs(*_port_args(bins), ng, port_config(cfg))
     assert got.shape == want.shape
     np.testing.assert_allclose(np_(got), want, rtol=1e-4, atol=1e-5)
@@ -98,13 +126,10 @@ def test_rasterize_backward_matches_pallas(case):
     """B2's plain version against jax.vjp of the Pallas kernel, for a
     random cotangent of the (NG, 5, GT, 256) output."""
     cfg, ng, bins = _bins(case)
-    out, vjp = jax.vjp(lambda r: jr.rasterize_pairs(
-        r, bins.group_starts, ng, cfg, True), bins.pair_records)
-    g = np.random.default_rng(0).normal(size=out.shape).astype(np.float32)
-    want = np.asarray(vjp(jnp.asarray(g))[0])
+    out, g, want = _jax_run(case)
     records, starts, counts = _port_args(bins)
     got = np_(tr.rasterize_pairs_backward_reference(
-        records, starts, counts, torch.from_numpy(np.array(out)),
+        records, starts, counts, torch.from_numpy(out),
         torch.from_numpy(g), ng, port_config(cfg)))
     assert got.shape == want.shape
     for row in GRAD_ROWS:
@@ -142,8 +167,15 @@ def test_layout_helpers_match():
     tiles = rng.standard_normal((ng, 5, gt, ts * ts)).astype(np.float32)
     tt = torch.from_numpy(tiles)
 
-    want_chw = np.asarray(jax_untile_chw_fast(
-        jnp.asarray(tiles[:, :4]), ntx, nty, ts, h, w, True))
+    g = rng.standard_normal((3, h, w)).astype(np.float32)
+
+    def untile_and_vjp(t, g):
+        out, vjp = jax.vjp(lambda t: jax_untile_chw_fast(t, ntx, nty, ts, h,
+                                                         w, True), t)
+        return out, vjp(g)[0]
+
+    want_chw, want = (np.asarray(x) for x in jax_fast(
+        untile_and_vjp, jnp.asarray(tiles[:, :4]), g))
     np.testing.assert_array_equal(
         np_(tl.untile_chw_fast(tt, ntx, nty, ts, h, w)), want_chw)
     np.testing.assert_array_equal(
@@ -155,11 +187,6 @@ def test_layout_helpers_match():
         np.asarray(jr.untile(jnp.asarray(tiles), ntx, nty, ts, h, w)))
 
     # the adjoint (B5-tile's plain version) against the Pallas VJP
-    g = rng.standard_normal((3, h, w)).astype(np.float32)
-    _, vjp = jax.vjp(lambda t: jax_untile_chw_fast(t, ntx, nty, ts, h, w,
-                                                   True),
-                     jnp.asarray(tiles[:, :4]))
-    want = np.asarray(vjp(jnp.asarray(g))[0])
     got = np_(tl.tile_chw(torch.from_numpy(g), ng, 5, gt, ntx, nty, ts))
     np.testing.assert_array_equal(got[:, :4], want)
     assert not got[:, 3:].any()

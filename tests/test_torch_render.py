@@ -6,8 +6,11 @@
 ``render_tiles`` and ``render_tiled`` with respect to every parameter and
 the screen-space probe, within a relative L2 difference of 1e-4 (the
 ROADMAP's gradient gate); and ``gstpu-torch --cpu render`` against
-``gstpu --cpu render`` on a scene the JAX package writes.
+``gstpu --cpu render`` on a scene the JAX package writes. The JAX image of
+the default scene and its gradient come from one compiled program.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +41,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
 from intro_to_gaussian_splatting_tpu_torch.ops.render import render
 from tests.scenes import small_scene
 from tests.test_torch_common import (
+    jax_fast,
     np_,
     port_camera,
     port_config,
@@ -45,7 +49,10 @@ from tests.test_torch_common import (
 )
 from tests.test_torch_rasterize import rel_l2
 
-CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
+# one tile group per grid step: the JAX kernels unroll their body over the
+# groups of a step, so this keeps their interpret-mode programs small
+CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2,
+                       groups_per_step=1)
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -55,9 +62,34 @@ def _scene(**kw):
     return cam, model, port_camera(cam), port_model(model)
 
 
+def _jax_vjp(jax_render, model, w):
+    """A render of ``model`` and its vjp for the cotangent ``w``, with
+    respect to the five parameters and a zero mean2d probe: (render,
+    {name: gradient})."""
+    probe = jnp.zeros((model.capacity, 2), jnp.float32)
+
+    def run(params, probe, w):
+        out, vjp = jax.vjp(lambda p, q: jax_render(model.replace(**p), q),
+                           params, probe)
+        return out, vjp(w)
+
+    out, (grads, dprobe) = jax_fast(run, model.params(), probe, w)
+    return np.asarray(out), {**grads, "probe": dprobe}
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_run():
+    """The default scene's render_tiled image and its gradient for random
+    weights on the image."""
+    cam, model, _, _ = _scene()
+    w = np.random.default_rng(1).normal(size=(24, 40, 3)).astype(np.float32)
+    return w, _jax_vjp(lambda m, p: jax_render_tiled(
+        m, cam, CFG, interpret=True, mean2d_offset=p), model, w)
+
+
 def test_render_auto_and_tiled_match():
     cam, model, tcam, tmodel = _scene()
-    want = np.asarray(jax_render_tiled(model, cam, CFG, interpret=True))
+    want = _tiled_run()[1][0]
     for backend in ("auto", "tiled"):
         got = render(tmodel, tcam, port_config(CFG), backend=backend)
         assert got.shape == (24, 40, 3)
@@ -74,8 +106,8 @@ def test_render_tiled_aux_matches_reference_cpu_compat():
     cfg = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32,
                            group_tiles=2, compat=CompatConfig.REFERENCE_CPU)
     cam, model, tcam, tmodel = _scene(n=100, width=40, height=40, seed=2)
-    want_img, want = jax_render_tiled(model, cam, cfg, return_aux=True,
-                                      interpret=True)
+    want_img, want = jax_fast(lambda: jax_render_tiled(
+        model, cam, cfg, return_aux=True, interpret=True))
     got_img, got = render_tiled(tmodel, tcam, port_config(cfg),
                                 return_aux=True)
     np.testing.assert_allclose(np_(got_img), np.asarray(want_img), **TOL)
@@ -90,17 +122,10 @@ def test_render_tiled_aux_matches_reference_cpu_compat():
                                atol=1e-6)
 
 
-def _gradients_match(jax_render, port_render, cam, model, tcam, tmodel,
-                     w):
-    """A linear functional ``w`` of each package's render, differentiated
-    with respect to the five parameters and a zero mean2d probe."""
-    probe = jnp.zeros((model.capacity, 2), jnp.float32)
-
-    def jax_loss(params, probe):
-        return jnp.sum(jax_render(model.replace(**params), probe) * w)
-
-    want = jax.grad(jax_loss, argnums=(0, 1))(model.params(), probe)
-    want = {**want[0], "probe": want[1]}
+def _gradients_match(want, port_render, model, tmodel, w):
+    """The port's gradients of the functional ``w`` of its render against
+    the JAX package's, ``want``, with respect to the five parameters and a
+    zero mean2d probe."""
     tprobe = torch.zeros((model.capacity, 2), requires_grad=True)
     out = port_render(tmodel, tprobe)
     inputs = [getattr(tmodel, n) for n in PARAM_NAMES] + [tprobe]
@@ -120,31 +145,30 @@ def test_render_tiles_gradients_match():
     cam, model, tcam, tmodel = _scene(n=400, width=48, height=32, seed=3,
                                       opacity_hi=6.0)
     cfg = port_config(CFG)
-    tiles = jax_render_tiles(model, cam, CFG, interpret=True)
+    tiles = render_tiles(tmodel, tcam, cfg)
     w = np.random.default_rng(1).normal(size=tiles.shape).astype(np.float32)
     w[:, 3:] = 0.0
+    _, want = _jax_vjp(lambda m, p: jax_render_tiles(
+        m, cam, CFG, interpret=True, mean2d_offset=p), model, w)
     _gradients_match(
-        lambda m, p: jax_render_tiles(m, cam, CFG, interpret=True,
-                                      mean2d_offset=p),
-        lambda m, p: render_tiles(m, tcam, cfg, mean2d_offset=p),
-        cam, model, tcam, tmodel, w)
+        want, lambda m, p: render_tiles(m, tcam, cfg, mean2d_offset=p),
+        model, tmodel, w)
 
 
 def test_render_tiled_gradients_match():
     """``render_tiled`` carries a gradient through ``untile_chw_fast``."""
     cam, model, tcam, tmodel = _scene()
     cfg = port_config(CFG)
+    w, (_, want) = _tiled_run()
     _gradients_match(
-        lambda m, p: jax_render_tiled(m, cam, CFG, interpret=True,
-                                      mean2d_offset=p),
-        lambda m, p: render_tiled(m, tcam, cfg, mean2d_offset=p),
-        cam, model, tcam, tmodel,
-        np.random.default_rng(1).normal(size=(24, 40, 3)).astype(np.float32))
+        want, lambda m, p: render_tiled(m, tcam, cfg, mean2d_offset=p),
+        model, tmodel, w)
 
 
 def test_render_dense_matches():
     cam, model, tcam, tmodel = _scene()
-    want_img, want = jax_render_dense(model, cam, CFG, return_aux=True)
+    want_img, want = jax_fast(lambda: jax_render_dense(model, cam, CFG,
+                                                       return_aux=True))
     got_img, got = render_dense(tmodel, tcam, port_config(CFG),
                                 return_aux=True)
     np.testing.assert_allclose(np_(got_img), np.asarray(want_img), **TOL)
