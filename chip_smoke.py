@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: the render path, the training
-step with the fused or the split loss, and batched steps.
+step with the fused or the split loss, batched steps, the probe kernels,
+checkpoint / resume, evaluation and the CLI.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -10,7 +11,7 @@ It imports only the port (``intro_to_gaussian_splatting_tpu_torch``), never
 JAX, and prints one JSON line per phase:
 
   device          card name and power limit, torch and CUDA versions, the
-                  build of all eight kernels (one nvcc per source, started
+                  build of all ten kernels (one nvcc per source, started
                   together) and ptxas's register / shared-memory / spill
                   report;
   small           a small seeded scene rendered on the card against the
@@ -60,22 +61,43 @@ JAX, and prints one JSON line per phase:
                   launching B1, B2, B4a, B4b, B5-untile and B5-tile once
                   and B3 never, counted from 0 as above;
   train_batched_ref_init  five ``train_step_batched`` steps over two ring
-                  cameras at ref_init, each launching B1, B2 and B3 twice.
+                  cameras at ref_init, each launching B1, B2 and B3 twice;
+  probes          the port's probe script (P1, P2 at 65,856 programs) with
+                  the counts set to 0 just before and read just after, P1
+                  exactly zero, P2 against its plain version on the
+                  script's inputs and on seeded random ones, times from
+                  CUDA events and torch.profiler, bounds, plain times, P1's
+                  library call;
+  checkpoint_ref_init  ten ``Trainer`` steps at ref_init saving at steps 5
+                  and 10, a fresh Trainer resumed from step 5 to 10
+                  bit-equal to them, retention, save / load ms and bytes;
+  eval_ref_init   ``evaluate`` on two ring cameras at 5068x3324 (B1 and
+                  B5-untile once per view) against PSNR / SSIM recomputed
+                  from ``render_tiled``, and a PLY export / import / render
+                  round trip;
+  cli_small       ``cli.main`` in-process on a small synthetic scene: info,
+                  train, train --resume, eval, points, bench, on the card.
 
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
 the ref_init render gradient, B4a and B4b from the split-loss run, B4c from
-the one-pass SSIM path) and, last, the contract line. Any failed check
-exits non-zero before the last line; with no card, or outside a checkout, it
-exits non-zero and prints no result.
+the one-pass SSIM path, P1 and P2 from the probe script) and, last, the
+contract line. Any failed check exits non-zero before the last line; with
+no card, or outside a checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -83,9 +105,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "intro_to_gaussian_splatting_tpu_torch"
 
-# Published peaks of one H100 SXM (NVIDIA data sheet), at its 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 # Operations kernel B1 does per (pair, pixel) evaluation: dx, dy (2), the
 # conic quadratic (9), the -0.5 scale (1), expf (1), opacity (1), clamp (2),
 # 1 - a (1), T * (1 - a) (1), the threshold test (1), T * a (1) and five
@@ -123,6 +142,9 @@ B4A_OPS_PER_PIXEL = 3 + 2 * 5 * 21 + 22
 B4B_OPS_PER_PIXEL = B4A_OPS_PER_PIXEL + 15 + 2 * 3 * 21 + 6
 B4C_OPS_PER_PIXEL = B4B_OPS_PER_PIXEL + 1
 
+P1_REPLACES = "scripts/probe_kernel.py:31"
+P2_REPLACES = "scripts/probe_kernel.py:55"
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -139,29 +161,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, ops: float):
-    """(ms, binding resource): the larger of bytes over the HBM rate and
-    operations over the f32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def stage_times(torch, model, cam, cfg, ntx, nty, ng, project_gaussians,
@@ -190,31 +189,6 @@ def stage_times(torch, model, cam, cfg, ntx, nty, ng, project_gaussians,
             for name, a, b in zip(names, marks, marks[1:]):
                 sums[name] += (b - a) * 1e3 / reps
     return sums
-
-
-def device_profile(torch, fn) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall ms, the ms the
-    card spent in kernels, the idle share, and the five longest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:5]
-    return dict(wall_ms=wall_ms, kernel_ms=busy_ms,
-                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                kernel_launches=sum(e.count for e in kernels),
-                top_kernels=[[e.key[:80], e.self_device_time_total / 1e3,
-                              e.count] for e in top])
-
 
 
 def rel_l2(torch, got, want) -> float:
@@ -309,7 +283,7 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
                  for n in M.PARAM_NAMES)
     step_ms = sum(secs[1:]) / len(secs[1:]) * 1e3
     extra = after() if after else {}
-    profile = device_profile(torch, step)
+    profile = M.U.device_profile(step)
     emit(phase, gaussians=model.capacity, steps=rows,
          launches_in_run=launches, step_ms_mean_2_on=step_ms,
          train_step_mpix_per_s=mpix / (step_ms / 1e3), **extra,
@@ -434,36 +408,37 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     b3_grad_err = rel_l2(torch, g_tile, g_tile_p)
     b5_equal = torch.equal(t5, t5_p)
 
-    b2_ms = cuda_ms(torch, lambda: R._rasterize_bwd_cuda(
+    b2_ms = M.U.cuda_ms(lambda: R._rasterize_bwd_cuda(
         *args, out, g_tile, ng, cfg), iters=5)
-    b2_plain_ms = cuda_ms(torch, lambda: R.rasterize_pairs_backward_reference(
+    b2_plain_ms = M.U.cuda_ms(lambda: R.rasterize_pairs_backward_reference(
         *args, out, g_tile, ng, cfg), iters=1, warmup=0)
-    b3_ms = cuda_ms(torch, lambda: FL._fused_loss_cuda(*loss_args), iters=10)
-    b3_plain_ms = cuda_ms(
-        torch, lambda: FL.fused_photometric_loss_reference(*loss_args),
+    b3_ms = M.U.cuda_ms(lambda: FL._fused_loss_cuda(*loss_args), iters=10)
+    b3_plain_ms = M.U.cuda_ms(
+        lambda: FL.fused_photometric_loss_reference(*loss_args),
         iters=2)
-    b5_ms = cuda_ms(torch, lambda: L.tile_chw_fast(
+    b5_ms = M.U.cuda_ms(lambda: L.tile_chw_fast(
         g_img, ng, R.OUT_CHANNELS, gt, ntx, nty, ts), iters=20)
-    b5_plain_ms = cuda_ms(torch, lambda: L.tile_chw(
+    b5_plain_ms = M.U.cuda_ms(lambda: L.tile_chw(
         g_img, ng, R.OUT_CHANNELS, gt, ntx, nty, ts), iters=5)
     # the library yardstick: the image-row -> tile transposition as one
     # permute + contiguous of the image padded to whole tiles
     padded = torch.nn.functional.pad(g_img, (0, ntx * ts - w, 0,
                                              nty * ts - h))
-    b5_lib_ms = cuda_ms(torch, lambda: padded.reshape(
+    b5_lib_ms = M.U.cuda_ms(lambda: padded.reshape(
         3, nty, ts, ntx, ts).permute(0, 1, 3, 2, 4).contiguous(), iters=20)
 
     out_bytes = out.numel() * 4
     mp = bins.pair_records.shape[1]
     # records read (64 B per emitted pair), tile ranges, the output and its
     # cotangent read, the (16, MP) gradient written
-    b2_bound, b2_by = bound(64 * num_pairs + 8 * ntx * nty + 2 * out_bytes
-                            + 64 * mp,
-                            B2_OPS_PER_EVALUATION * evaluations)
+    b2_bound, b2_by = M.U.bound(
+        64 * num_pairs + 8 * ntx * nty + 2 * out_bytes + 64 * mp,
+        B2_OPS_PER_EVALUATION * evaluations)
     # three channels of the tiles and the target read, the gradient written
-    b3_bound, b3_by = bound(out_bytes * 3 // R.OUT_CHANNELS + 3 * h * w * 4
-                            + out_bytes, B3_OPS_PER_PIXEL * 3 * h * w)
-    b5_bound, b5_by = bound(3 * h * w * 4 + out_bytes, 0)
+    b3_bound, b3_by = M.U.bound(
+        out_bytes * 3 // R.OUT_CHANNELS + 3 * h * w * 4 + out_bytes,
+        B3_OPS_PER_PIXEL * 3 * h * w)
+    b5_bound, b5_by = M.U.bound(3 * h * w * 4 + out_bytes, 0)
     reason = ("no single PyTorch call computes this function; its plain "
               "version is a composition of many")
     rows = [
@@ -570,26 +545,26 @@ def ssim_kernels(torch, M, height, width, card):
     target_zero = not dy_path.any()
     del x, y, dx_path, dy_path
 
-    b4a_ms = cuda_ms(torch, lambda: S._ssim_sum_cuda(a, b, c1, c2), iters=10)
-    b4b_ms = cuda_ms(torch, lambda: S._ssim_grad_cuda(a, b, g, c1, c2,
-                                                      False), iters=10)
-    b4b_target_ms = cuda_ms(torch, lambda: S._ssim_grad_cuda(
+    b4a_ms = M.U.cuda_ms(lambda: S._ssim_sum_cuda(a, b, c1, c2), iters=10)
+    b4b_ms = M.U.cuda_ms(lambda: S._ssim_grad_cuda(a, b, g, c1, c2, False),
+                         iters=10)
+    b4b_target_ms = M.U.cuda_ms(lambda: S._ssim_grad_cuda(
         a, b, g, c1, c2, True), iters=10)
-    b4c_ms = cuda_ms(torch, lambda: S._ssim_value_grad_cuda(
+    b4c_ms = M.U.cuda_ms(lambda: S._ssim_value_grad_cuda(
         a, b, c1, c2, False), iters=10)
     with torch.no_grad():
-        b4a_plain_ms = cuda_ms(torch, lambda: S.ssim_sum_reference(
+        b4a_plain_ms = M.U.cuda_ms(lambda: S.ssim_sum_reference(
             a, b, c1, c2), iters=3)
-    b4b_plain_ms = cuda_ms(torch, lambda: S.ssim_grad_reference(
+    b4b_plain_ms = M.U.cuda_ms(lambda: S.ssim_grad_reference(
         a, b, g, c1, c2, False), iters=2)
-    b4c_plain_ms = cuda_ms(torch, lambda: S.ssim_value_grad_reference(
+    b4c_plain_ms = M.U.cuda_ms(lambda: S.ssim_value_grad_reference(
         a, b, c1, c2, False), iters=2)
     px = 3 * height * width
     # B4a reads the two images; B4b and B4c read them and write the
     # prediction's gradient
-    b4a_bound, b4a_by = bound(2 * px * 4, B4A_OPS_PER_PIXEL * px)
-    b4b_bound, b4b_by = bound(3 * px * 4, B4B_OPS_PER_PIXEL * px)
-    b4c_bound, b4c_by = bound(3 * px * 4, B4C_OPS_PER_PIXEL * px)
+    b4a_bound, b4a_by = M.U.bound(2 * px * 4, B4A_OPS_PER_PIXEL * px)
+    b4b_bound, b4b_by = M.U.bound(3 * px * 4, B4B_OPS_PER_PIXEL * px)
+    b4c_bound, b4c_by = M.U.bound(3 * px * 4, B4C_OPS_PER_PIXEL * px)
     rows = [
         dict(name="B4a ssim_sum", route="cuda",
              source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4A_REPLACES,
@@ -639,6 +614,332 @@ def ssim_kernels(torch, M, height, width, card):
     return rows
 
 
+def probes(torch, np, M, card):
+    """P1 and P2 at the probe script's size (65,856 programs, a 2^18 x 128
+    table): the main path is the port's probe script, ``probe1()`` and
+    ``probe2()`` (torch.profiler device times), with every launch count set
+    to 0 just before and read just after. Then P1 into a NaN-filled buffer
+    exactly equal to zeros, and P2 against its plain version on the
+    script's inputs and on seeded random ones (relative L2 1e-6), bit-equal
+    on repeat; CUDA-event times, ns per program, bounds, plain times and
+    P1's library call (``torch.empty(...).zero_()``). Returns the two
+    kernel rows."""
+    P, PK, U = M.P, M.PK, M.U
+    nt, out_shape = P.NT, (P.NT, P.OUT_ROWS, P.PIX)
+    torch.cuda.synchronize()
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    durs = {"P1": PK.probe1(), "P2": PK.probe2()}
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS}
+
+    buf = torch.full(out_shape, float("nan"), device="cuda")
+    P._probe_zero_cuda(buf)
+    p1_err = float(buf.abs().max())
+    p1_equal = torch.equal(buf, P.probe_zero_reference(nt, "cuda"))
+    del buf
+    inputs = {"script": P.probe_inputs(nt, P.MP, device="cuda"),
+              "seeded_random": P.probe_random_inputs(nt, P.MP, seed=0,
+                                                     device="cuda")}
+    p2 = {}
+    for name, args in inputs.items():
+        got = P.probe_window(*args)
+        again = P.probe_window(*args)
+        want = P.probe_window_reference(*args, batch=8192)
+        p2[name] = dict(rel_l2=rel_l2(torch, got, want),
+                        max_abs_err=float((got - want).abs().max()),
+                        bit_equal_on_repeat=torch.equal(got, again),
+                        programs_by_chunks=torch.bincount(
+                            P.window_chunks(*args[:2])[1]).tolist(),
+                        mean=float(want.mean()))
+        del got, again, want
+
+    args = inputs["script"]
+    p1_ms = U.cuda_ms(lambda: P.probe_zero(nt, "cuda"), iters=20)
+    p1_plain_ms = U.cuda_ms(lambda: P.probe_zero_reference(nt, "cuda"),
+                            iters=20)
+    p1_lib_ms = U.cuda_ms(lambda: torch.empty(out_shape,
+                                              device="cuda").zero_(),
+                          iters=20)
+    p2_ms = U.cuda_ms(lambda: P.probe_window(*args), iters=20)
+    p2_random_ms = U.cuda_ms(lambda: P.probe_window(
+        *inputs["seeded_random"]), iters=20)
+    p2_plain_ms = U.cuda_ms(lambda: P.probe_window_reference(
+        *args, batch=8192), iters=2)
+
+    # P1 writes its output; P2 writes it and reads the starts, the counts
+    # and every table row that some window covers, once, and does
+    # P2_OPS_PER_ELEMENT per window row and lane of each chunk
+    out_bytes = 4 * nt * P.OUT_ROWS * P.PIX
+    astart, nchunks = (t.cpu().numpy() for t in P.window_chunks(*args[:2]))
+    cover = np.zeros(P.MP + 1, np.int64)
+    live = nchunks > 0
+    np.add.at(cover, np.minimum(astart[live], P.MP), 1)
+    np.add.at(cover, np.minimum(astart[live] + P.G * nchunks[live], P.MP),
+              -1)
+    rows_read = int((np.cumsum(cover)[:P.MP] > 0).sum())
+    p1_bound, p1_by = U.bound(out_bytes, 0)
+    p2_bound, p2_by = U.bound(
+        out_bytes + 8 * nt + 4 * P.REC_COLS * rows_read,
+        P.P2_OPS_PER_ELEMENT * P.G * P.PIX * int(nchunks.sum()))
+    source = f"{PACKAGE}/csrc/probe.cu"
+    rows = [
+        dict(name="P1 probe_zero", route="cuda", source=source,
+             replaces=P1_REPLACES, launches=launches["probe_zero"],
+             max_abs_err=p1_err, ms=p1_ms, plain_ms=p1_plain_ms,
+             bound_ms=p1_bound, bound_by=p1_by, library_ms=p1_lib_ms),
+        dict(name="P2 probe_window", route="cuda", source=source,
+             replaces=P2_REPLACES, launches=launches["probe_window"],
+             max_abs_err=p2["script"]["max_abs_err"], ms=p2_ms,
+             plain_ms=p2_plain_ms, bound_ms=p2_bound, bound_by=p2_by,
+             library_ms=None),
+    ]
+    emit("probes", programs=nt, kernels=rows, launches_in_run=launches,
+         profiler_ms={k: [d * 1e3 for d in v] for k, v in durs.items()},
+         ns_per_program={"P1": p1_ms * 1e6 / nt, "P2": p2_ms * 1e6 / nt,
+                         "P2_seeded_random": p2_random_ms * 1e6 / nt},
+         p2_seeded_random_ms=p2_random_ms, p1_exactly_zero=p1_equal, p2=p2,
+         p2_table_rows_read=rows_read,
+         library_ms_null_reason={
+             "P2": "no single PyTorch call computes this function"},
+         tolerance="P1 exact; P2 relative L2 1e-6", card=card)
+    check(p1_equal, "P1 did not write zeros over its whole output")
+    check(all(v["rel_l2"] <= 1e-6 and v["bit_equal_on_repeat"]
+              for v in p2.values()),
+          f"P2 disagrees with its plain version: {p2}")
+    # torch.profiler can miss one of the three launches when an earlier
+    # profiling session ran in the process; the CUDA-event times above are
+    # the row's
+    check(all(1 <= len(v) <= 3 for v in durs.values()),
+          f"the profiler did not time the probes: {durs}")
+    check(launches["probe_zero"] >= 1 and launches["probe_window"] >= 1,
+          f"probes: a kernel was not launched: {launches}")
+    return rows
+
+
+def checkpoint_run(torch, M, xyz, rgb, cam, target_hwc, tmp, card):
+    """Checkpoint and resume at the ref_init scene: ten ``Trainer`` steps
+    with ``checkpoint_every=5`` (steps 5 and 10 kept), then a fresh Trainer
+    that resumes from step 5 with ``checkpoint_keep=1`` and runs to step
+    10. Its parameters, Adam moments and step must equal the straight
+    run's bit for bit; its step-10 save must replace the straight run's and
+    leave only step 10. Save and load ms (host clock, the card
+    synchronised), bytes on disk, launches. Returns the trained model."""
+    C, T = M.C, M.T
+    ckpt = os.path.join(tmp, "ckpt")
+    tcfg = M.TrainConfig(iterations=10, checkpoint_every=5,
+                         checkpoint_keep=2)
+
+    def trainer(keep):
+        return T.Trainer(
+            model=M.init_from_points(xyz, rgb, device="cuda"),
+            cameras=[cam], targets=[target_hwc], scene_extent=10.0,
+            tcfg=dataclasses.replace(tcfg, checkpoint_keep=keep),
+            log_every=5, checkpoint_dir=ckpt)
+
+    torch.cuda.synchronize()
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    straight = trainer(2)
+    history = straight.run(10)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS}
+    kept_straight = C.list_checkpoint_steps(ckpt)
+    resumed = trainer(1)
+    restored = resumed.resume(ckpt, step=5)
+    resumed_history = resumed.run(5)
+    torch.cuda.synchronize()
+    kept_resumed = C.list_checkpoint_steps(ckpt)
+
+    params_equal = {n: torch.equal(getattr(straight.model, n),
+                                   getattr(resumed.model, n))
+                    for n in M.PARAM_NAMES}
+    params_equal["active"] = torch.equal(straight.model.active,
+                                         resumed.model.active)
+    moments_equal = {}
+    for n in M.PARAM_NAMES:
+        a, b = straight.opt_state[n], resumed.opt_state[n]
+        moments_equal[n] = all(
+            (x is None and y is None) or (x is not None and y is not None
+                                          and torch.equal(x, y))
+            for x, y in ((a.count, b.count), (a.mu, b.mu), (a.nu, b.nu),
+                         (a.schedule_count, b.schedule_count)))
+
+    timing = os.path.join(tmp, "timing")
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.save_checkpoint(timing, straight.model, straight.opt_state, 10)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        C.load_checkpoint(timing, resumed.model, resumed.opt_state)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    state_bytes = os.path.getsize(os.path.join(timing, "step_10",
+                                               C.STATE_FILE))
+    emit("checkpoint_ref_init", gaussians=straight.model.capacity,
+         history=history, resumed_history=resumed_history,
+         restored_step=restored, steps=[straight.step, resumed.step],
+         launches_in_straight_run=launches,
+         kept_after_straight_run=kept_straight,
+         kept_after_resumed_run=kept_resumed,
+         params_bit_equal=params_equal, adam_bit_equal=moments_equal,
+         save_ms=save_ms, load_ms=load_ms, state_bytes=state_bytes,
+         card=card)
+    check(restored == 5 and straight.step == resumed.step == 10,
+          "checkpoint_ref_init: wrong steps")
+    check(all(params_equal.values()) and all(moments_equal.values()),
+          f"checkpoint_ref_init: the resumed run differs from the straight "
+          f"one: {params_equal}, {moments_equal}")
+    check(kept_straight == [5, 10] and kept_resumed == [10],
+          f"checkpoint_ref_init: retention {kept_straight}, {kept_resumed}")
+    check(all(launches[k] == 10 for k in ("rasterize_fwd", "rasterize_bwd",
+                                          "fused_loss")),
+          f"checkpoint_ref_init: launches {launches}")
+    return straight.model
+
+
+def eval_run(torch, M, model, cams, targets, tmp, card):
+    """``evaluate`` on the ring cameras at 5068x3324, each view launching B1
+    and B5-untile once (counts set to 0 just before, read just after); its
+    PSNR and SSIM against those recomputed from ``render_tiled``'s image
+    with ``loss.psnr`` / ``loss.ssim`` (rel 1e-6); then ``export_ply`` ->
+    ``import_ply`` -> render against the model's render (max abs 1e-6)."""
+    C, E, R, LS = M.C, M.E, M.R, M.LS
+    cfg = M.RasterizerConfig()
+    torch.cuda.synchronize()
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = E.evaluate(model, cams, targets, cfg)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS}
+    recomputed = []
+    with torch.no_grad():
+        for cam, target in zip(cams, targets):
+            img = torch.clamp(R.render_tiled(model, cam, cfg), 0.0, 1.0)
+            t = torch.as_tensor(target, device="cuda")
+            recomputed.append((float(LS.psnr(img, t)),
+                               float(LS.ssim(img, t))))
+        path = os.path.join(tmp, "model.ply")
+        t0 = time.perf_counter()
+        C.export_ply(path, model)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        back = C.import_ply(path, color_space=model.color_space,
+                            device="cuda")
+        ply_err = float((R.render_tiled(back, cams[0], cfg)
+                         - R.render_tiled(model, cams[0], cfg)).abs().max())
+        # where one view's time goes: host clock, the card synchronised
+        # (psnr and ssim of the last view's image and target)
+        names = ("target to the card", "render_tiled and clip", "psnr",
+                 "ssim")
+        marks = [time.perf_counter()]
+        for stage in (
+                lambda: torch.as_tensor(targets[0], device="cuda"),
+                lambda: torch.clamp(R.render_tiled(model, cams[0], cfg),
+                                    0.0, 1.0),
+                lambda: LS.psnr(img, t), lambda: LS.ssim(img, t)):
+            stage()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        stages = {k: (b - a) * 1e3 for k, a, b in zip(names, marks,
+                                                      marks[1:])}
+    errs = [dict(psnr=abs(r["psnr"] - p) / abs(p),
+                 ssim=abs(r["ssim"] - s) / abs(s))
+            for r, (p, s) in zip(rows, recomputed)]
+    n = len(cams)
+    emit("eval_ref_init", views=n, width=cams[0].width,
+         height=cams[0].height, rows=rows, recomputed=recomputed,
+         rel_err_vs_recomputed=errs, launches=launches, eval_ms=eval_ms,
+         ms_per_view=eval_ms / n, view_stages_host_ms=stages,
+         ply_bytes=os.path.getsize(path),
+         ply_export_ms=export_ms, ply_round_trip_render_max_abs=ply_err,
+         tolerance="PSNR/SSIM rel 1e-6; PLY round trip max abs 1e-6",
+         card=card)
+    check(launches["rasterize_fwd"] == n and launches["untile_chw"] == n,
+          f"eval_ref_init: launches {launches}")
+    check(all(e["psnr"] <= 1e-6 and e["ssim"] <= 1e-6 for e in errs),
+          f"eval_ref_init: metrics differ from the recomputed ones: {errs}")
+    check(not any(r["overflowed"] for r in rows[:-1])
+          and rows[-1]["name"] == "mean",
+          f"eval_ref_init: {rows}")
+    check(ply_err <= 1e-6, f"eval_ref_init: PLY round trip {ply_err}")
+
+
+def cli_run(torch, M, tmp, card):
+    """The CLI in-process on a small synthetic COLMAP scene with ground
+    truth (300 points, 3 cameras, 64x48, its images rendered on the card):
+    info, train (12 steps, holdout 3, checkpoints, eval at the end),
+    train --resume to 18, eval with saved renders, points against the
+    stored keypoints, bench. Each must exit 0 and each but info (which
+    only reads the model files) print device=cuda; the training loss
+    falls, the artifacts appear, the resume continues from step 12.
+    Launches per command."""
+    from intro_to_gaussian_splatting_tpu_torch import cli
+    from intro_to_gaussian_splatting_tpu_torch.io.synthetic import (
+        make_colmap_scene,
+    )
+
+    scene, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+    make_colmap_scene(scene, num_points=300, num_cameras=3, width=64,
+                      height=48, seed=5, write_images=True, device="cuda")
+    ply = os.path.join(out, "point_cloud.ply")
+    renders = os.path.join(out, "renders")
+    commands = {
+        "info": ["info", scene],
+        "train": ["train", scene, "--iterations", "12", "--out-dir", out,
+                  "--holdout", "3", "--checkpoint-every", "6",
+                  "--eval-at-end"],
+        "train_resume": ["train", scene, "--iterations", "18", "--out-dir",
+                         out, "--resume"],
+        "eval": ["eval", scene, "--ply", ply, "--holdout", "3",
+                 "--save-renders", renders],
+        "points": ["points", scene, "-o", os.path.join(out, "points.ppm"),
+                   "--compare-keypoints"],
+        "bench": ["bench", scene, "--iters", "3"],
+    }
+    results, texts = {}, {}
+    for name, argv in commands.items():
+        for k in M.ALL_KERNELS:
+            k.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        texts[name] = buf.getvalue()
+        results[name] = dict(
+            rc=rc, seconds=time.perf_counter() - t0,
+            device_cuda="device=cuda" in texts[name],
+            launches={k.symbol: k.launches for k in M.ALL_KERNELS
+                      if k.launches},
+            last_lines=texts[name].splitlines()[-4:])
+    losses = [float(v) for v in re.findall(r"step \d+: loss ([\d.]+)",
+                                           texts["train"])]
+    artifacts = {a: os.path.exists(os.path.join(out, a))
+                 for a in ("point_cloud.ply", "render.ppm", "metrics.jsonl")}
+    kept = M.C.list_checkpoint_steps(os.path.join(out, "ckpt"))
+    emit("cli_small", commands=results, train_losses=losses,
+         artifacts=artifacts, checkpoints=kept,
+         renders=sorted(os.listdir(renders)), card=card)
+    check(all(r["rc"] == 0 and (r["device_cuda"] or name == "info")
+              for name, r in results.items()), f"cli_small: {results}")
+    check(len(losses) >= 2 and losses[-1] < losses[0],
+          f"cli_small: the training loss did not fall: {losses}")
+    check(all(artifacts.values()) and kept == [6, 12, 18],
+          f"cli_small: artifacts {artifacts}, checkpoints {kept}")
+    check("resumed from step 12 (6 iterations remaining)"
+          in texts["train_resume"], "cli_small: resume did not continue")
+    check(all(results["train"]["launches"].get(k, 0) >= 12
+              for k in ("rasterize_fwd", "rasterize_bwd", "fused_loss")),
+          f"cli_small: train launches {results['train']['launches']}")
+    check("eval[holdout]" in texts["train"] and "mean" in texts["eval"]
+          and "keypoint overlay" in texts["points"]
+          and "ms/frame" in texts["bench"], "cli_small: missing output")
+
+
 def main() -> int:
     import torch
 
@@ -658,18 +959,27 @@ def main() -> int:
         random_point_cloud, ring_cameras,
     )
     from intro_to_gaussian_splatting_tpu_torch.models import (
-        GaussianModel, init_from_points, make_camera, stack_cameras,
+        GaussianModel, index_camera, init_from_points, make_camera,
+        stack_cameras,
     )
     from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
         PARAM_NAMES,
     )
     from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
     from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as FL
+    from intro_to_gaussian_splatting_tpu_torch.ops import probe as P
     from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as R
     from intro_to_gaussian_splatting_tpu_torch.ops import relayout as L
     from intro_to_gaussian_splatting_tpu_torch.ops import ssim as S
+    from intro_to_gaussian_splatting_tpu_torch.scripts import (
+        probe_kernel as PK,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.train import checkpoint as C
     from intro_to_gaussian_splatting_tpu_torch.train import densify as D
+    from intro_to_gaussian_splatting_tpu_torch.train import evaluate as E
+    from intro_to_gaussian_splatting_tpu_torch.train import loss as LS
     from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
+    from intro_to_gaussian_splatting_tpu_torch.utils import profiling as U
     from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
         bin_gaussians, num_groups_for, tile_grid,
     )
@@ -684,13 +994,15 @@ def main() -> int:
     import numpy as np
 
     M = types.SimpleNamespace(
-        R=R, L=L, FL=FL, S=S, D=D, T=T, TrainConfig=TrainConfig,
+        R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E, LS=LS,
+        TrainConfig=TrainConfig, RasterizerConfig=RasterizerConfig,
         PARAM_NAMES=PARAM_NAMES, tile_grid=tile_grid,
         num_groups_for=num_groups_for, bin_gaussians=bin_gaussians,
         project_gaussians=project_gaussians, GRAD_ROWS=GRAD_ROWS,
+        init_from_points=init_from_points,
         ALL_KERNELS=(R.RASTERIZE_FWD, R.RASTERIZE_BWD, FL.FUSED_LOSS,
                      L.UNTILE_CHW, L.TILE_CHW, S.SSIM_SUM, S.SSIM_GRAD,
-                     S.SSIM_VALUE_GRAD))
+                     S.SSIM_VALUE_GRAD, P.PROBE_ZERO, P.PROBE_WINDOW))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
@@ -968,24 +1280,25 @@ def main() -> int:
         b5_ok = torch.equal(chw, chw_plain)
 
         # -- times
-        b1_ms = cuda_ms(torch, lambda: R.rasterize_pairs(*args), iters=10)
-        b1_plain_ms = cuda_ms(
-            torch, lambda: R.rasterize_pairs_reference(*args), iters=1,
+        b1_ms = M.U.cuda_ms(lambda: R.rasterize_pairs(*args), iters=10)
+        b1_plain_ms = M.U.cuda_ms(
+            lambda: R.rasterize_pairs_reference(*args), iters=1,
             warmup=0)
         b1_bytes = (64 * num_pairs + 8 * ntx * nty
                     + R.OUT_CHANNELS * tiles[0, 0].numel() * ng * 4)
-        b1_bound, b1_by = bound(b1_bytes, B1_OPS_PER_EVALUATION * evaluations)
-        b5_ms = cuda_ms(torch, lambda: L.untile_chw_fast(
+        b1_bound, b1_by = M.U.bound(b1_bytes,
+                                    B1_OPS_PER_EVALUATION * evaluations)
+        b5_ms = M.U.cuda_ms(lambda: L.untile_chw_fast(
             tiles, ntx, nty, ts, height, width), iters=20)
-        b5_plain_ms = cuda_ms(torch, lambda: L.untile_chw(
+        b5_plain_ms = M.U.cuda_ms(lambda: L.untile_chw(
             tiles[:, :3], ntx, nty, ts, height, width), iters=10)
         # the library yardstick: the tile -> image-row transposition as one
         # permute + contiguous of the channel-major flattened tiles
         flat = tiles[:, :3].permute(1, 0, 2, 3).reshape(
             3, -1, ts * ts)[:, :ntx * nty].reshape(3, nty, ntx, ts, ts)
-        b5_lib_ms = cuda_ms(
-            torch, lambda: flat.permute(0, 1, 3, 2, 4).contiguous(), iters=20)
-        b5_bound, b5_by = bound(2 * 3 * width * height * 4, 0)
+        b5_lib_ms = M.U.cuda_ms(
+            lambda: flat.permute(0, 1, 3, 2, 4).contiguous(), iters=20)
+        b5_bound, b5_by = M.U.bound(2 * 3 * width * height * 4, 0)
 
         def whole():
             with torch.no_grad():
@@ -1002,7 +1315,7 @@ def main() -> int:
         render_ms = sum(reps) / len(reps)
         stages = stage_times(torch, model, cam, cfg, ntx, nty, ng,
                              project_gaussians, bin_gaussians, R, L)
-        device = device_profile(torch, whole)
+        device = M.U.device_profile(whole)
 
         rows = [
             dict(name="B1 rasterize_fwd", route="cuda",
@@ -1081,9 +1394,25 @@ def main() -> int:
     run_steps(torch, M, "train_batched_ref_init", batched_step, model,
               {"rasterize_fwd": 2, "rasterize_bwd": 2, "fused_loss": 2}, 5,
               2 * mpix, card)
+    del batched_step, model
+    torch.cuda.empty_cache()
+
+    # -- the probes, then checkpoint / resume and evaluation at the ref_init
+    # scene, and the CLI on a small scene, in a directory of the checkout
+    p_rows = probes(torch, np, M, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke-") as tmp:
+        trained = checkpoint_run(torch, M, xyz, rgb, cam, target_hwc, tmp,
+                                 card)
+        eval_targets = [gradient_target(np, width, height)]
+        eval_targets.append(eval_targets[0][:, ::-1].copy())
+        eval_run(torch, M, trained, [index_camera(cams, i) for i in (0, 1)],
+                 eval_targets, tmp, card)
+        cli_run(torch, M, tmp, card)
 
     print(card, flush=True)
-    print(json.dumps({"kernels": summary["ref_init"] + b4_rows}), flush=True)
+    print(json.dumps({"kernels": summary["ref_init"] + b4_rows + p_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,8 +16,7 @@ they mean:
     f32 arithmetic, which is what ``"highest"`` means on the TPU.
 
 ``TrainConfig`` has every field and default of the JAX package's, and the
-trainer takes each of them but ``checkpoint_every`` / ``checkpoint_keep``
-(checkpointing comes with a later slice).
+trainer takes each of them.
 """
 
 from __future__ import annotations
@@ -125,6 +124,6 @@ class TrainConfig:
     # cameras averaged per optimizer step (train_step_batched when > 1)
     camera_batch: int = 1
     seed: int = 0
-    # periodic full-state saves (checkpointing comes with a later slice)
+    # periodic full-state saves (Trainer.checkpoint_dir), newest kept
     checkpoint_every: int = 0
     checkpoint_keep: int = 3

@@ -1,10 +1,11 @@
-"""COLMAP sparse-model reader (binary + text), pure NumPy.
+"""COLMAP sparse-model reader (binary + text) and binary writer, pure NumPy.
 
-The port's own copy of the JAX package's readers. The on-disk formats are
-fixed by COLMAP itself (colmap/src/colmap/scene/reconstruction.cc). The
-whole file is read once and fixed-size records are decoded with
-``np.frombuffer`` views, with one thin Python loop over the variable-length
-image/point records. The output is struct-of-arrays.
+The port's own copy of the JAX package's readers and writers. The on-disk
+formats are fixed by COLMAP itself
+(colmap/src/colmap/scene/reconstruction.cc). The whole file is read once
+and fixed-size records are decoded with ``np.frombuffer`` views, with one
+thin Python loop over the variable-length image/point records. The output
+is struct-of-arrays.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ CAMERA_MODELS = {
     9: ("RADIAL_FISHEYE", 5),
     10: ("THIN_PRISM_FISHEYE", 12),
 }
+CAMERA_MODEL_NAMES = {name: (mid, n) for mid, (name, n) in CAMERA_MODELS.items()}
 
 
 @dataclasses.dataclass
@@ -301,3 +303,54 @@ def read_points3D(model_path: str) -> ColmapPoints:
 def read_model(model_path: str) -> Tuple[Dict[int, ColmapCamera], Dict[int, ColmapImage], ColmapPoints]:
     """Read a full sparse model directory (e.g. scene/sparse/0)."""
     return read_cameras(model_path), read_images(model_path), read_points3D(model_path)
+
+
+# ---------------------------------------------------------------------------
+# Binary writers (synthetic scenes and round trips; the formats mirror the
+# readers above, byte for byte those of the JAX package's writers)
+# ---------------------------------------------------------------------------
+
+def write_cameras_binary(cameras: Dict[int, ColmapCamera], path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            model_id, num_params = CAMERA_MODEL_NAMES[cam.model]
+            if len(cam.params) != num_params:
+                raise ValueError(f"camera {cam.id}: {cam.model} takes "
+                                 f"{num_params} params, got {cam.params}")
+            f.write(struct.pack("<iiQQ", cam.id, model_id, cam.width,
+                                cam.height))
+            f.write(np.asarray(cam.params, dtype="<f8").tobytes())
+
+
+def write_images_binary(images: Dict[int, ColmapImage], path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack("<idddddddi", im.id, *im.qvec, *im.tvec,
+                                im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            n = len(im.xys)
+            f.write(struct.pack("<Q", n))
+            rec = np.empty((n, 3), dtype="<f8")
+            rec[:, :2] = im.xys
+            rec[:, 2] = np.asarray(im.point3D_ids, dtype="<i8").view("<f8")
+            f.write(rec.tobytes())
+
+
+def write_points3D_binary(points: ColmapPoints, path: str) -> None:
+    offsets = np.concatenate([[0], np.cumsum(points.track_lengths)])
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for i in range(len(points)):
+            f.write(struct.pack(
+                "<QdddBBBd",
+                int(points.ids[i]), *points.xyz[i],
+                *(int(c) for c in points.rgb[i]), float(points.error[i]),
+            ))
+            lo, hi = offsets[i], offsets[i + 1]
+            f.write(struct.pack("<Q", hi - lo))
+            t = np.empty((hi - lo, 2), dtype="<i4")
+            t[:, 0] = points.track_image_ids[lo:hi]
+            t[:, 1] = points.track_point2D_idxs[lo:hi]
+            f.write(t.tobytes())

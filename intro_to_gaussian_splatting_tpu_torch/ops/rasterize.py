@@ -416,9 +416,9 @@ def render_tiled(
 ):
     """Full pipeline: project -> bin -> rasterize -> (H, W, 3).
 
-    Without ``return_aux`` the colour channels go through
-    ``untile_chw_fast`` (kernel B5-untile on the card) and one permute to
-    (H, W, 3), as the JAX package's hot path does.
+    The colour channels go through ``untile_chw_fast`` (kernel B5-untile on
+    the card) and one permute to (H, W, 3), as the JAX package's hot path
+    does; ``return_aux`` untiles depth and alpha with the plain ``untile``.
     """
     h, w = camera.height, camera.width
     ts = config.tile_size
@@ -430,17 +430,14 @@ def render_tiled(
     bins = bin_gaussians(proj, w, h, config)
     tile_out = rasterize_pairs(bins.pair_records, bins.tile_starts,
                                bins.tile_counts, num_groups, config)
-    if return_aux:
-        full = untile(tile_out, ntx, nty, ts, h, w)
-        image = full[..., :3]
-    else:
-        image = untile_chw_fast(tile_out, ntx, nty, ts, h, w).permute(1, 2, 0)
+    image = untile_chw_fast(tile_out, ntx, nty, ts, h, w).permute(1, 2, 0)
     if config.compat.skip_last_tile:
         image = image * skip_last_tile_mask(h, w, ts, image.device)[..., None]
     if return_aux:
-        alpha = full[..., 4]
+        depth_alpha = untile(tile_out[:, 3:5], ntx, nty, ts, h, w)
+        alpha = depth_alpha[..., 1]
         return image, dict(
-            depth=full[..., 3],
+            depth=depth_alpha[..., 0],
             alpha=alpha,
             # the accumulated-weight complement 1 - alpha, NOT the exact
             # exit transmittance: it differs from prod(1 - alpha_i) by at

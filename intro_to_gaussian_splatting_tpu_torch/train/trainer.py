@@ -26,11 +26,12 @@ one card:
     ``camera_batch`` > 1) from ``default_rng(seed)``, a byte-bounded LRU
     cache of targets on the card, a running count of pair-pool overflows
     kept on the card and read only at log and densify boundaries (doubling
-    the pool when it grew), densify / prune / opacity reset, and JSONL
-    metrics.
+    the pool when it grew), densify / prune / opacity reset, JSONL
+    metrics, periodic full-state checkpoints and ``resume``.
+  * ``train_cli`` is ``gstpu-torch train``: load a COLMAP scene with its
+    photos, train, and write the checkpoint, the PLY and one render.
 
-A device mesh and checkpointing come with later slices; a mesh raises
-``NotImplementedError``.
+A device mesh comes with a later slice; it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -318,6 +320,9 @@ class Trainer:
     log_every: int = 50
     on_log: Optional[Callable] = None
     mesh: Optional[object] = None     # multi-card training: a later slice
+    # with tcfg.checkpoint_every > 0, the full state (model, optimizer,
+    # step) is saved here every that many steps; resume() restores it
+    checkpoint_dir: Optional[str] = None
     # one JSON object per logged metrics row
     jsonl_path: Optional[str] = None
     # device-memory budget for the cached targets, LRU-evicted beyond it
@@ -461,6 +466,7 @@ class Trainer:
             self.step += 1
             self._overflow_count += metrics["overflowed"].to(torch.int32)
             self._maybe_densify()
+            self._maybe_checkpoint()
             if self.step % self.log_every == 0 or it == iterations - 1:
                 m = dict(metrics, overflow_steps=self._overflow_count)
                 m = self._fetch_metrics(m)
@@ -486,6 +492,41 @@ class Trainer:
         values = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64)
                               for k in keys]).tolist()
         return dict(zip(keys, values))
+
+    def _maybe_checkpoint(self):
+        """Periodic full-state save (model, optimizer moments, step), the
+        newest ``tcfg.checkpoint_keep`` kept."""
+        every = self.tcfg.checkpoint_every
+        if not (every and self.checkpoint_dir and self.step % every == 0):
+            return
+        from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
+            prune_checkpoints, save_checkpoint,
+        )
+        save_checkpoint(self.checkpoint_dir, self.model, self.opt_state,
+                        self.step)
+        prune_checkpoints(self.checkpoint_dir, self.tcfg.checkpoint_keep)
+        if self.on_log:
+            self.on_log(dict(step=self.step, event="checkpoint_saved",
+                             dir=self.checkpoint_dir))
+
+    def resume(self, path: Optional[str] = None,
+               step: Optional[int] = None) -> int:
+        """Restore model, optimizer and step from the newest (or the given)
+        checkpoint; returns the restored step. The Trainer must be built
+        with the same scene and capacity as the run that saved it. As in
+        the JAX package, the densify statistics start from zero, the split
+        noise's generator from the seed and ``run`` draws the remaining
+        steps' camera order anew: a resumed run on one camera equals the
+        uninterrupted one bit for bit until its first densify step."""
+        from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
+            load_checkpoint,
+        )
+        path = path or self.checkpoint_dir
+        if not path:
+            raise ValueError("resume() needs a checkpoint path")
+        self.model, self.opt_state, self.step = load_checkpoint(
+            path, self.model, self.opt_state, step)
+        return self.step
 
     def _grow_pair_pool(self):
         """The pair pool dropped whole far gaussians: double it so the drop
@@ -524,3 +565,98 @@ def scene_extent_of(points: np.ndarray) -> float:
     uses the camera extent; the point extent stands in)."""
     center = points.mean(axis=0)
     return float(np.linalg.norm(points - center, axis=1).max())
+
+
+# ---------------------------------------------------------------------------
+# CLI entry (gstpu-torch train)
+# ---------------------------------------------------------------------------
+
+def train_cli(args) -> int:
+    """Train a COLMAP scene with its photos (``args`` from the ``train``
+    subcommand of ``cli.py``) on the card, or on the CPU with ``--cpu``.
+    Writes ``<out-dir>/ckpt/step_<N>``, ``point_cloud.ply``, ``render.ppm``
+    and ``metrics.jsonl``; ``--iterations`` is the total budget, also when
+    resuming."""
+    from intro_to_gaussian_splatting_tpu_torch.cli import write_ppm
+    from intro_to_gaussian_splatting_tpu_torch.device import resolve_device
+    from intro_to_gaussian_splatting_tpu_torch.io.dataset import load_scene
+    from intro_to_gaussian_splatting_tpu_torch.models import init_from_points
+    from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
+        render_tiled,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
+        export_ply, save_checkpoint,
+    )
+
+    device = resolve_device("cpu" if args.cpu else None)
+    scene = load_scene(args.scene, downscale=args.downscale,
+                       min_track=args.min_track, device=device)
+    if not scene.targets:
+        raise SystemExit(
+            f"no ground-truth images found under {args.scene}/images")
+    train_scene, holdout_scene = scene.split_holdout(args.holdout)
+    points = scene.points
+    cams, targets = train_scene.cameras, train_scene.targets
+
+    tcfg = TrainConfig(iterations=args.iterations)
+    if args.ssim_weight is not None:
+        tcfg = dataclasses.replace(tcfg, ssim_weight=args.ssim_weight)
+    if args.camera_batch > 1:
+        tcfg = dataclasses.replace(tcfg, camera_batch=args.camera_batch)
+    if args.checkpoint_every:
+        tcfg = dataclasses.replace(tcfg,
+                                   checkpoint_every=args.checkpoint_every)
+
+    model = init_from_points(
+        points.xyz, points.rgb, sh_degree=tcfg.sh_degree, color_space="sh",
+        capacity=int(len(points) * tcfg.capacity_multiplier), opacity=0.1,
+        scale_init=None, device=device)
+    print(f"training {len(cams)} views, {len(points)} points on "
+          f"device={device}")
+
+    def log(m):
+        if "event" in m:
+            print(f"step {m['step']}: {m['event']} ({m})")
+            return
+        print(f"step {m['step']}: loss {m['loss']:.4f} "
+              f"psnr {m['psnr']:.2f} active {int(m['num_active'])}")
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    ckpt_dir = os.path.join(args.out_dir, "ckpt")
+    trainer = Trainer(model=model, cameras=cams, targets=targets,
+                      scene_extent=scene_extent_of(points.xyz), tcfg=tcfg,
+                      on_log=log,
+                      log_every=max(1, min(50, args.iterations // 6)),
+                      checkpoint_dir=ckpt_dir,
+                      jsonl_path=os.path.join(args.out_dir, "metrics.jsonl"))
+    iterations = args.iterations
+    if args.resume:
+        restored = trainer.resume(
+            ckpt_dir if args.resume == "auto" else args.resume)
+        iterations = max(0, args.iterations - restored)
+        print(f"resumed from step {restored} "
+              f"({iterations} iterations remaining)")
+    if iterations:
+        trainer.run(iterations)
+
+    save_checkpoint(ckpt_dir, trainer.model, trainer.opt_state, trainer.step)
+    export_ply(os.path.join(args.out_dir, "point_cloud.ply"), trainer.model)
+    with torch.no_grad():
+        img = render_tiled(trainer.model, cams[0], trainer.rcfg,
+                           active_sh_degree=trainer.active_sh_degree)
+    write_ppm(os.path.join(args.out_dir, "render.ppm"), img.cpu().numpy())
+    print(f"saved checkpoint + ply + render to {args.out_dir}")
+
+    if args.eval_at_end:
+        from intro_to_gaussian_splatting_tpu_torch.train.evaluate import (
+            evaluate,
+        )
+        es = holdout_scene if holdout_scene.cameras else train_scene
+        tag = "holdout" if holdout_scene.cameras else "train"
+        rows = evaluate(trainer.model, es.cameras, es.targets, trainer.rcfg,
+                        active_sh_degree=trainer.active_sh_degree,
+                        names=es.names)
+        for r in rows:
+            print(f"eval[{tag}] {r['name']:>20s}  psnr {r['psnr']:6.2f}  "
+                  f"ssim {r['ssim']:.4f}")
+    return 0

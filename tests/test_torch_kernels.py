@@ -16,7 +16,8 @@ Tolerances: B1 rtol 1e-4 / atol 1e-5 (kernel and plain version round alike,
 (the kernels sum pixels in a tree, the plain versions with torch.sum or
 through conv2d), B3's value and MSE and B4a's value rel 1e-5; B4c against
 B4a and B4b, value rel 1e-6 and gradient relative L2 1e-5; the relayouts
-exactly equal. Every kernel's output is the same bit for bit from one
+and P1 exactly equal; P2 relative L2 1e-6 (its three payload sums taken
+in another order). Every kernel's output is the same bit for bit from one
 launch to the next.
 """
 
@@ -37,6 +38,7 @@ from intro_to_gaussian_splatting_tpu_torch.models import (
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import PARAM_NAMES
 from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
 from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
+from intro_to_gaussian_splatting_tpu_torch.ops import probe as tp
 from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
 from intro_to_gaussian_splatting_tpu_torch.ops import ssim as ts
@@ -110,7 +112,8 @@ def _bins(case, device):
 
 
 KERNELS = (tr.RASTERIZE_FWD, tr.RASTERIZE_BWD, tf.FUSED_LOSS, tl.UNTILE_CHW,
-           tl.TILE_CHW, ts.SSIM_SUM, ts.SSIM_GRAD, ts.SSIM_VALUE_GRAD)
+           tl.TILE_CHW, ts.SSIM_SUM, ts.SSIM_GRAD, ts.SSIM_VALUE_GRAD,
+           tp.PROBE_ZERO, tp.PROBE_WINDOW)
 
 
 def rel_l2(got, want):
@@ -159,14 +162,19 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
             pred, g3.abs(), grad_target=False, precompute_grad=precompute),
             pred)
         torch.testing.assert_close(dx, want, rtol=1e-6, atol=0.0)
+    assert torch.equal(tp.probe_zero(5, "cpu"), torch.zeros((5, 8, 256)))
+    args = tp.probe_random_inputs(64, 512, device="cpu")
+    assert torch.equal(tp.probe_window(*args),
+                       tp.probe_window_reference(*args))
     assert [k.launches for k in KERNELS] == before
 
 
 def test_kernel_build_flags():
     sources = (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
                tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
-               ts.SSIM_SOURCE)
-    assert [k.source for k in KERNELS] == list(sources) + [ts.SSIM_SOURCE] * 2
+               ts.SSIM_SOURCE, tp.SOURCE)
+    assert [k.source for k in KERNELS] == (
+        list(sources[:-1]) + [ts.SSIM_SOURCE] * 2 + [tp.SOURCE] * 2)
     for src in sources:
         assert src.path.is_file()
         flags = cuda_build.NVCC_FLAGS + src.extra_flags
@@ -175,7 +183,7 @@ def test_kernel_build_flags():
         assert "__expf(" not in src.path.read_text()
         assert src.library().name.startswith(f"lib{src.name}-")
     for src in (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
-                tf.FUSED_LOSS_SOURCE, ts.SSIM_SOURCE):
+                tf.FUSED_LOSS_SOURCE, ts.SSIM_SOURCE, tp.SOURCE):
         assert "-fmad=false" in src.extra_flags
         assert "atomicAdd" not in src.path.read_text()
 
@@ -457,3 +465,32 @@ def test_split_train_step_gradients_on_card(cuda_device):
     for name in grads:
         assert rel_l2(grads[name], cpu_grads[name]) <= 1e-4, name
         assert torch.equal(grads[name], grads2[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["script", "seeded_random"])
+def test_probe_kernels_match_plain_on_card(inputs, cuda_device):
+    """P1 overwrites every element of its output with 0 (exact); P2 within
+    relative L2 1e-6 of its plain version (float32 sums in another order),
+    bit-equal on repeat, rows past the table read as 0."""
+    nt, mp = 3000, 1 << 14
+    buf = torch.full((nt, 8, 256), float("nan"), device=cuda_device)
+    tp._probe_zero_cuda(buf)
+    assert torch.equal(buf, torch.zeros_like(buf))
+    assert torch.equal(tp.probe_zero(nt, cuda_device), buf)
+    if inputs == "script":
+        args = tp.probe_inputs(nt, mp, device=cuda_device)
+    else:
+        args = tp.probe_random_inputs(nt, mp, seed=1, device=cuda_device)
+    got = tp.probe_window(*args)
+    want = tp.probe_window_reference(*args)
+    assert rel_l2(got, want) <= 1e-6
+    assert torch.equal(got, tp.probe_window(*args))
+    starts = torch.tensor([mp - 8], dtype=torch.int32, device=cuda_device)
+    counts = torch.tensor([40], dtype=torch.int32, device=cuda_device)
+    rec = args[2]
+    padded = torch.cat([rec, torch.zeros((64, 128), device=cuda_device)])
+    assert torch.equal(tp.probe_window(starts, counts, rec),
+                       tp.probe_window(starts, counts, padded))
+    with pytest.raises(ValueError):
+        tp.probe_window(args[0].long(), args[1], rec)
