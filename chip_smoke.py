@@ -35,10 +35,14 @@ JAX, and prints one JSON line per phase:
   knn_init        the same scene at the KNN scale init with the dense pool
                   (pairs_per_gaussian=585, group_tiles=16, groups_per_step=16);
   *_kernels       per scene, B1 and B5-untile against their plain versions
-                  on the scene's real inputs, their times from CUDA events,
-                  bounds, plain and library times; the whole ``render_tiled``
-                  on a host clock, its stages, and one call under
-                  torch.profiler;
+                  on the scene's real inputs, their times (B1 from CUDA
+                  events; B5-untile and its library call timed in turns,
+                  torch.profiler's device durations with the CUDA-event
+                  figures beside them, bytes and GB/s), bounds, plain and
+                  library times; the whole ``render_tiled`` on a host clock,
+                  its stages, and one call under torch.profiler; at
+                  ref_init also ``render_tiled`` at ``group_tiles=1``
+                  (65,936 groups) exactly equal to the default render;
   train_ref_init  ten ``train_step``s at that scene (bench.py's gradient
                   target, ``TrainConfig()``), every launch count set to 0
                   just before and read just after: per step loss, PSNR and
@@ -51,7 +55,8 @@ JAX, and prints one JSON line per phase:
                   path that launches B5-tile, counted the same way;
   train_kernels_* per scene, on the step's real inputs, B2, B3 and B5-tile
                   against their plain versions, with times, bounds, plain
-                  times and (B5-tile) the library call's; the step's
+                  times and (B5-tile, timed as B5-untile) the library
+                  call's; the step's
                   gradients from two backward passes bit for bit equal;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
                   3x3324x5068 images, times, bounds, plain times; the
@@ -189,6 +194,40 @@ def stage_times(torch, model, cam, cfg, ntx, nty, ng, project_gaussians,
             for name, a, b in zip(names, marks, marks[1:]):
                 sums[name] += (b - a) * 1e3 / reps
     return sums
+
+
+def in_turns(M, kernel, library, per_turn=15):
+    """A B5 kernel and its library call timed in turns (kernel, library,
+    library, kernel; ``per_turn`` calls each): the mean device durations
+    under torch.profiler and how many launches it timed, then the same
+    turns from CUDA events."""
+    (ms, n), (lib_ms, lib_n) = M.U.device_ms_in_turns(kernel, library,
+                                                      per_turn)
+    events = ([], [])
+    for i in (0, 1, 1, 0):
+        events[i].append(M.U.cuda_ms((kernel, library)[i], iters=per_turn))
+    return dict(ms=ms, profiler_launches=n,
+                cuda_event_ms=sum(events[0]) / 2, library_ms=lib_ms,
+                library_profiler_launches=lib_n,
+                library_cuda_event_ms=sum(events[1]) / 2)
+
+
+def b5_row(times, nbytes, library_bytes, **fields):
+    """A B5 kernel row: the profiler's means, the CUDA-event figures beside
+    them, and bytes moved and GB/s for the kernel and its library call."""
+    check(times["profiler_launches"] >= 20
+          and times["library_profiler_launches"] >= 20,
+          f"{fields['name']}: the profiler timed fewer than 20 launches: "
+          f"{times}")
+    return dict(fields, ms=times["ms"], bytes=nbytes,
+                gbytes_per_s=nbytes / times["ms"] / 1e6,
+                cuda_event_ms=times["cuda_event_ms"],
+                profiler_launches=times["profiler_launches"],
+                library_ms=times["library_ms"], library_bytes=library_bytes,
+                library_gbytes_per_s=library_bytes / times["library_ms"]
+                / 1e6,
+                library_cuda_event_ms=times["library_cuda_event_ms"],
+                library_profiler_launches=times["library_profiler_launches"])
 
 
 def rel_l2(torch, got, want) -> float:
@@ -416,16 +455,19 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     b3_plain_ms = M.U.cuda_ms(
         lambda: FL.fused_photometric_loss_reference(*loss_args),
         iters=2)
-    b5_ms = M.U.cuda_ms(lambda: L.tile_chw_fast(
-        g_img, ng, R.OUT_CHANNELS, gt, ntx, nty, ts), iters=20)
     b5_plain_ms = M.U.cuda_ms(lambda: L.tile_chw(
         g_img, ng, R.OUT_CHANNELS, gt, ntx, nty, ts), iters=5)
     # the library yardstick: the image-row -> tile transposition as one
-    # permute + contiguous of the image padded to whole tiles
+    # permute + contiguous of the image padded to whole tiles (it writes
+    # neither the zero channels nor the group padding)
     padded = torch.nn.functional.pad(g_img, (0, ntx * ts - w, 0,
                                              nty * ts - h))
-    b5_lib_ms = M.U.cuda_ms(lambda: padded.reshape(
-        3, nty, ts, ntx, ts).permute(0, 1, 3, 2, 4).contiguous(), iters=20)
+    b5_times = in_turns(
+        M, lambda: L.tile_chw_fast(g_img, ng, R.OUT_CHANNELS, gt, ntx, nty,
+                                   ts),
+        lambda: padded.reshape(3, nty, ts, ntx, ts).permute(
+            0, 1, 3, 2, 4).contiguous())
+    del padded
 
     out_bytes = out.numel() * 4
     mp = bins.pair_records.shape[1]
@@ -438,7 +480,8 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     b3_bound, b3_by = M.U.bound(
         out_bytes * 3 // R.OUT_CHANNELS + 3 * h * w * 4 + out_bytes,
         B3_OPS_PER_PIXEL * 3 * h * w)
-    b5_bound, b5_by = M.U.bound(3 * h * w * 4 + out_bytes, 0)
+    b5_bytes = 3 * h * w * 4 + out_bytes
+    b5_bound, b5_by = M.U.bound(b5_bytes, 0)
     reason = ("no single PyTorch call computes this function; its plain "
               "version is a composition of many")
     rows = [
@@ -454,12 +497,13 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
                  (g_tile - g_tile_p).abs().max()),
              ms=b3_ms, plain_ms=b3_plain_ms, bound_ms=b3_bound,
              bound_by=b3_by, library_ms=None),
-        dict(name="B5-tile tile_chw", route="cuda",
-             source=f"{PACKAGE}/csrc/tile_chw.cu", replaces=B5_TILE_REPLACES,
-             launches=grad_launches["tile_chw"],
-             max_abs_err=float((t5 - t5_p).abs().max()), ms=b5_ms,
-             plain_ms=b5_plain_ms, bound_ms=b5_bound, bound_by=b5_by,
-             library_ms=b5_lib_ms),
+        b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
+               name="B5-tile tile_chw", route="cuda",
+               source=f"{PACKAGE}/csrc/tile_chw.cu",
+               replaces=B5_TILE_REPLACES,
+               launches=grad_launches["tile_chw"],
+               max_abs_err=float((t5 - t5_p).abs().max()),
+               plain_ms=b5_plain_ms, bound_ms=b5_bound, bound_by=b5_by),
     ]
     emit(f"train_kernels_{scene}", kernels=rows, num_pairs=num_pairs,
          b2_rel_l2_per_row=b2_err, b2_exact_zeros=b2_zero,
@@ -1288,17 +1332,17 @@ def main() -> int:
                     + R.OUT_CHANNELS * tiles[0, 0].numel() * ng * 4)
         b1_bound, b1_by = M.U.bound(b1_bytes,
                                     B1_OPS_PER_EVALUATION * evaluations)
-        b5_ms = M.U.cuda_ms(lambda: L.untile_chw_fast(
-            tiles, ntx, nty, ts, height, width), iters=20)
         b5_plain_ms = M.U.cuda_ms(lambda: L.untile_chw(
             tiles[:, :3], ntx, nty, ts, height, width), iters=10)
         # the library yardstick: the tile -> image-row transposition as one
         # permute + contiguous of the channel-major flattened tiles
         flat = tiles[:, :3].permute(1, 0, 2, 3).reshape(
             3, -1, ts * ts)[:, :ntx * nty].reshape(3, nty, ntx, ts, ts)
-        b5_lib_ms = M.U.cuda_ms(
-            lambda: flat.permute(0, 1, 3, 2, 4).contiguous(), iters=20)
-        b5_bound, b5_by = M.U.bound(2 * 3 * width * height * 4, 0)
+        b5_times = in_turns(
+            M, lambda: L.untile_chw_fast(tiles, ntx, nty, ts, height, width),
+            lambda: flat.permute(0, 1, 3, 2, 4).contiguous())
+        b5_bytes = 2 * 3 * width * height * 4
+        b5_bound, b5_by = M.U.bound(b5_bytes, 0)
 
         def whole():
             with torch.no_grad():
@@ -1317,17 +1361,33 @@ def main() -> int:
                              project_gaussians, bin_gaussians, R, L)
         device = M.U.device_profile(whole)
 
+        # the layout of one tile per group: more groups than the grid's
+        # 65,535 in y and z, the same image as the default layout (binning
+        # gives each tile the same pairs in both)
+        one_per_group = {}
+        if scene == "ref_init":
+            cfg1 = dataclasses.replace(cfg, group_tiles=1)
+            with torch.no_grad():
+                image1 = R.render_tiled(model, cam, cfg1)
+            torch.cuda.synchronize()
+            one_per_group = dict(
+                groups=num_groups_for(ntx * nty, cfg1),
+                equal_to_default=torch.equal(image1, image),
+                max_abs_diff=float((image1 - image).abs().max()))
+            del image1
+
         rows = [
             dict(name="B1 rasterize_fwd", route="cuda",
                  source=f"{PACKAGE}/csrc/rasterize_fwd.cu",
                  replaces=B1_REPLACES, launches=launches["B1"],
                  max_abs_err=max(b1_err), ms=b1_ms, plain_ms=b1_plain_ms,
                  bound_ms=b1_bound, bound_by=b1_by, library_ms=None),
-            dict(name="B5-untile untile_chw", route="cuda",
-                 source=f"{PACKAGE}/csrc/untile_chw.cu",
-                 replaces=B5_REPLACES, launches=launches["B5-untile"],
-                 max_abs_err=b5_err, ms=b5_ms, plain_ms=b5_plain_ms,
-                 bound_ms=b5_bound, bound_by=b5_by, library_ms=b5_lib_ms),
+            b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
+                   name="B5-untile untile_chw", route="cuda",
+                   source=f"{PACKAGE}/csrc/untile_chw.cu",
+                   replaces=B5_REPLACES, launches=launches["B5-untile"],
+                   max_abs_err=b5_err, plain_ms=b5_plain_ms,
+                   bound_ms=b5_bound, bound_by=b5_by),
         ]
         emit(f"{scene}_kernels", kernels=rows,
              b1_max_abs_err_per_channel=b1_err, b1_within_tolerance=b1_ok,
@@ -1335,7 +1395,12 @@ def main() -> int:
              b1_bytes=b1_bytes, b5_exactly_equal=b5_ok,
              render_tiled_ms=reps, render_tiled_mean_ms=render_ms,
              render_tiled_mpix_per_s=mpix / (render_ms / 1e3),
-             stages_host_ms=stages, device_profile=device, card=card)
+             stages_host_ms=stages, device_profile=device,
+             one_tile_per_group=one_per_group, card=card)
+        check(not one_per_group or (one_per_group["groups"] > 65535
+                                    and one_per_group["equal_to_default"]),
+              f"{scene}: the render at group_tiles=1 differs from the "
+              f"default: {one_per_group}")
         check(b1_ok, f"{scene}: B1 disagrees with its plain version "
                      f"(max abs per channel {b1_err})")
         check(b5_ok, f"{scene}: B5-untile differs from its plain version")

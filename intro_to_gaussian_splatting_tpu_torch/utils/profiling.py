@@ -11,6 +11,8 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
   * ``profile_device_time(...)``  the device durations of the CUDA kernels
                            whose name contains a substring, read from
                            ``torch.profiler``'s events;
+  * ``device_ms_in_turns(...)``  two functions' mean kernel durations
+                           from ``torch.profiler``, timed in turns;
   * ``cuda_ms``, ``device_profile``  a function's mean device time from
                            CUDA events, and one call's kernel time, wall
                            time and idle share under the profiler;
@@ -129,6 +131,27 @@ def profile_device_time(fn, *args, iters: int = 5, warmup: int = 1,
         _sync()
     return [e.device_time_total / 1e6 for e in _kernel_events(prof)
             if name_substr in e.name]
+
+
+def device_ms_in_turns(a, b, per_turn: int = 15):
+    """``a`` and ``b`` timed in turns (a, b, b, a; ``per_turn`` calls
+    each), each turn under its own torch.profiler session, so that a
+    comparison is made on one card at one time. Returns, for each, the
+    mean device duration (ms) of the CUDA kernels its calls launched and
+    how many the profiler timed."""
+    a()
+    b()
+    _sync()
+    durs = ([], [])
+    for i in (0, 1, 1, 0):
+        with torch.profiler.profile(activities=_activities()) as prof:
+            for _ in range(per_turn):
+                (a, b)[i]()
+            _sync()
+        durs[i].extend(e.device_time_total / 1e3
+                       for e in _kernel_events(prof))
+    return tuple((sum(d) / len(d) if d else float("nan"), len(d))
+                 for d in durs)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

@@ -183,9 +183,22 @@ def test_kernel_build_flags():
         assert "__expf(" not in src.path.read_text()
         assert src.library().name.startswith(f"lib{src.name}-")
     for src in (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
-                tf.FUSED_LOSS_SOURCE, ts.SSIM_SOURCE, tp.SOURCE):
+                tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
+                ts.SSIM_SOURCE, tp.SOURCE):
         assert "-fmad=false" in src.extra_flags
         assert "atomicAdd" not in src.path.read_text()
+
+
+def test_tile_chw_fast_takes_three_channels():
+    """``tile_chw_fast`` takes a 3-channel image on every device, as kernel
+    B5-tile does, and refuses any other count before it dispatches."""
+    ntx, nty = tile_grid(37, 21, 16)
+    img = torch.randn((5, 21, 37), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tl.tile_chw_fast(img[:3], 4, 5, 2, ntx, nty, 16),
+                       tl.tile_chw(img[:3], 4, 5, 2, ntx, nty, 16))
+    for c in (1, 5):
+        with pytest.raises(ValueError, match="3-channel"):
+            tl.tile_chw_fast(img[:c], 4, 5, 2, ntx, nty, 16)
 
 
 @pytest.mark.cuda
@@ -218,19 +231,53 @@ def test_b1_kernel_checks_its_inputs(cuda_device):
                            cfg)
 
 
-@pytest.mark.cuda
-def test_b5_kernel_matches_plain_on_card(cuda_device):
-    w, h, ts, gt = 84, 52, 16, 4
+# (width, height, tile size, group tiles, offset in floats of the inputs'
+# views): every width % 4, ts = 32 with phantom tiles, views that are not
+# 16-byte aligned, and more than 65,535 groups (257 x 257 tiles, one per
+# group: about 340 MB of tiles)
+B5_CASES = {
+    "w84": (84, 52, 16, 4, 0),
+    "w85": (85, 52, 16, 4, 0),
+    "w86": (86, 52, 16, 4, 0),
+    "w87": (87, 52, 16, 4, 0),
+    "ts32_phantom": (85, 52, 32, 4, 0),
+    "unaligned": (84, 52, 16, 4, 1),
+    "unaligned_ts32_w87": (87, 53, 32, 3, 2),
+    "groups_66049": (4112, 4112, 16, 1, 0),
+}
+
+
+def _b5_inputs(case, device):
+    """Tiles and a (3, H, W) image from a seed, as views ``offset`` floats
+    into their storage."""
+    w, h, ts, gt, offset = B5_CASES[case]
     ntx, nty = tile_grid(w, h, ts)
-    ng = num_groups_for(ntx * nty, RasterizerConfig(group_tiles=gt))
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    tiles = torch.randn((ng, 5, gt, ts * ts), generator=gen,
-                        device=cuda_device)
+    ng = num_groups_for(ntx * nty, RasterizerConfig(tile_size=ts,
+                                                    group_tiles=gt))
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def at_offset(shape):
+        x = torch.randn(shape, generator=gen, device=device)
+        view = torch.empty(x.numel() + offset, device=device)[offset:]
+        return view.copy_(x.reshape(-1)).view(shape)
+
+    layout = (ntx, nty, ts, h, w)
+    return (at_offset((ng, 5, gt, ts * ts)), at_offset((3, h, w)), ng, gt,
+            layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(B5_CASES))
+def test_b5_kernel_matches_plain_on_card(case, cuda_device):
+    tiles, _, ng, gt, (ntx, nty, ts, h, w) = _b5_inputs(case, cuda_device)
+    assert (ng > 65535) == (case == "groups_66049")
     before = tl.UNTILE_CHW.launches
     got = tl.untile_chw_fast(tiles, ntx, nty, ts, h, w)
+    again = tl.untile_chw_fast(tiles, ntx, nty, ts, h, w)
     torch.cuda.synchronize()
-    assert tl.UNTILE_CHW.launches == before + 1
+    assert tl.UNTILE_CHW.launches == before + 2
     assert torch.equal(got, tl.untile_chw(tiles[:, :3], ntx, nty, ts, h, w))
+    assert torch.equal(got, again)
     with pytest.raises(ValueError, match="contiguous"):
         tl.untile_chw_fast(tiles.transpose(0, 1), ntx, nty, ts, h, w)
 
@@ -305,20 +352,43 @@ def test_b3_kernel_matches_plain_on_card(h, w, cuda_device):
 
 
 @pytest.mark.cuda
-def test_b5_tile_kernel_matches_plain_on_card(cuda_device):
-    w, h, ts, gt = 84, 52, 16, 4
-    ntx, nty = tile_grid(w, h, ts)
-    ng = num_groups_for(ntx * nty, RasterizerConfig(group_tiles=gt))
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    tiles = torch.randn((ng, 5, gt, ts * ts), generator=gen,
-                        device=cuda_device, requires_grad=True)
-    g3 = torch.randn((3, h, w), generator=gen, device=cuda_device)
+@pytest.mark.parametrize("case", sorted(B5_CASES))
+def test_b5_tile_kernel_matches_plain_on_card(case, cuda_device):
+    tiles, g3, ng, gt, (ntx, nty, ts, h, w) = _b5_inputs(case, cuda_device)
+    want = tl.tile_chw(g3, ng, 5, gt, ntx, nty, ts)
     before = tl.TILE_CHW.launches
+    got = tl.tile_chw_fast(g3, ng, 5, gt, ntx, nty, ts)
+    again = tl.tile_chw_fast(g3, ng, 5, gt, ntx, nty, ts)
     back, = torch.autograd.grad(
-        tl.untile_chw_fast(tiles, ntx, nty, ts, h, w), tiles, g3)
+        tl.untile_chw_fast(tiles.requires_grad_(True), ntx, nty, ts, h, w),
+        tiles, g3)
     torch.cuda.synchronize()
-    assert tl.TILE_CHW.launches == before + 1
-    assert torch.equal(back, tl.tile_chw(g3, ng, 5, gt, ntx, nty, ts))
+    assert tl.TILE_CHW.launches == before + 3
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert torch.equal(back, want)
+
+
+@pytest.mark.cuda
+def test_render_tiled_one_tile_per_group_on_card(cuda_device):
+    """``render_tiled`` at ``group_tiles=1`` on a 5068x3324 camera (65,936
+    groups, past the grid's 65,535 in y and z) equals the same call at the
+    default 64 tiles per group exactly: binning gives each tile the same
+    pairs, in the same order, in both layouts."""
+    model, cam = _scene(cuda_device, n=2000, width=5068, height=3324,
+                        seed=3)
+    images = {}
+    for gt in (1, 64):
+        cfg = RasterizerConfig(group_tiles=gt)
+        before = tl.UNTILE_CHW.launches
+        with torch.no_grad():
+            images[gt] = tr.render_tiled(model, cam, cfg)
+        torch.cuda.synchronize()
+        assert tl.UNTILE_CHW.launches == before + 1
+    ntx, nty = tile_grid(cam.width, cam.height, 16)
+    assert num_groups_for(ntx * nty, RasterizerConfig(group_tiles=1)) > 65535
+    assert images[1].abs().sum() > 0
+    assert torch.equal(images[1], images[64])
 
 
 @pytest.mark.cuda

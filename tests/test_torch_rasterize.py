@@ -158,8 +158,9 @@ def test_evaluation_count_stops_at_each_pixel_exit():
     assert 0 < ev < ev_all
 
 
-def test_layout_helpers_match():
-    w, h, ts, gt = 84, 52, 16, 4
+@pytest.mark.parametrize("w,h,ts,gt", [(84, 52, 16, 4), (85, 52, 32, 4)],
+                         ids=["84x52_ts16", "85x52_ts32"])
+def test_layout_helpers_match(w, h, ts, gt):
     cfg = RasterizerConfig(tile_size=ts, group_tiles=gt, groups_per_step=3)
     ntx, nty = tile_grid(w, h, ts)
     ng = num_groups_for(ntx * nty, cfg)
