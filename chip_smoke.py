@@ -35,8 +35,10 @@ JAX, and prints one JSON line per phase:
   knn_init        the same scene at the KNN scale init with the dense pool
                   (pairs_per_gaussian=585, group_tiles=16, groups_per_step=16);
   *_kernels       per scene, B1 and B5-untile against their plain versions
-                  on the scene's real inputs, their times (B1 from CUDA
-                  events; B5-untile and its library call timed in turns,
+                  on the scene's real inputs, their times (B1's device ms
+                  per call under torch.profiler, at least 20 launches
+                  timed, the CUDA-event ms beside it, as for every B1-B4
+                  row; B5-untile and its library call timed in turns,
                   torch.profiler's device durations with the CUDA-event
                   figures beside them, bytes and GB/s), bounds, plain and
                   library times; the whole ``render_tiled`` on a host clock,
@@ -54,10 +56,10 @@ JAX, and prints one JSON line per phase:
   render_grad_*   the gradient of a ``render_tiled`` image on the card, the
                   path that launches B5-tile, counted the same way;
   train_kernels_* per scene, on the step's real inputs, B2, B3 and B5-tile
-                  against their plain versions, with times, bounds, plain
-                  times and (B5-tile, timed as B5-untile) the library
-                  call's; the step's
-                  gradients from two backward passes bit for bit equal;
+                  against their plain versions, with times (at both
+                  scenes), bounds, plain times and (B5-tile, timed as
+                  B5-untile) the library call's; the step's gradients
+                  from two backward passes bit for bit equal;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
                   3x3324x5068 images, times, bounds, plain times; the
                   one-pass path ``fused_ssim(precompute_grad=True)`` under
@@ -210,6 +212,20 @@ def in_turns(M, kernel, library, per_turn=15):
                 cuda_event_ms=sum(events[0]) / 2, library_ms=lib_ms,
                 library_profiler_launches=lib_n,
                 library_cuda_event_ms=sum(events[1]) / 2)
+
+
+def profiled(M, fn, names, calls=24):
+    """A B1-B4 kernel's time: its wrapper called ``calls`` times under
+    torch.profiler, the device ms per call of the kernels whose names
+    contain one of ``names`` (at least 20 launches of the first must be
+    timed), and the wrapper's mean time from CUDA events beside it."""
+    by_name = M.U.device_ms_per_call(fn, calls)
+    mine = {n: v for n, v in by_name.items() if any(k in n for k in names)}
+    timed = sum(v[1] for n, v in mine.items() if names[0] in n)
+    check(timed >= 20, f"{names[0]}: the profiler timed {timed} of {calls} "
+                       f"launches ({sorted(by_name)})")
+    return dict(ms=sum(v[0] for v in mine.values()), profiler_launches=timed,
+                cuda_event_ms=M.U.cuda_ms(fn, iters=10))
 
 
 def b5_row(times, nbytes, library_bytes, **fields):
@@ -404,9 +420,10 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     """B2, B3 and B5-tile against their plain versions on the training
     step's real inputs (the current model's records and render, B3's own
     pixel gradient as B2's cotangent, a render_tiled image's gradient for
-    B5-tile): errors, CUDA-event ms, bounds, plain ms and (B5-tile) the
-    library call's ms; and the whole step's gradients from two backward
-    passes, bit for bit equal. Returns the three kernel rows."""
+    B5-tile): errors, profiler and CUDA-event ms, bounds, plain ms and
+    (B5-tile) the library call's ms; and the whole step's gradients from
+    two backward passes, bit for bit equal. Returns the three kernel
+    rows."""
     R, L, FL = M.R, M.L, M.FL
     h, w, ts, gt = cam.height, cam.width, cfg.tile_size, cfg.group_tiles
     ntx, nty = M.tile_grid(w, h, ts)
@@ -447,11 +464,13 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     b3_grad_err = rel_l2(torch, g_tile, g_tile_p)
     b5_equal = torch.equal(t5, t5_p)
 
-    b2_ms = M.U.cuda_ms(lambda: R._rasterize_bwd_cuda(
-        *args, out, g_tile, ng, cfg), iters=5)
+    b2_times = profiled(M, lambda: R._rasterize_bwd_cuda(
+        *args, out, g_tile, ng, cfg), ("rasterize_bwd_kernel",
+                                       "zero_tail_kernel"))
     b2_plain_ms = M.U.cuda_ms(lambda: R.rasterize_pairs_backward_reference(
         *args, out, g_tile, ng, cfg), iters=1, warmup=0)
-    b3_ms = M.U.cuda_ms(lambda: FL._fused_loss_cuda(*loss_args), iters=10)
+    b3_times = profiled(M, lambda: FL._fused_loss_cuda(*loss_args),
+                        ("fused_loss_kernel", "sum_partials_kernel"))
     b3_plain_ms = M.U.cuda_ms(
         lambda: FL.fused_photometric_loss_reference(*loss_args),
         iters=2)
@@ -472,9 +491,12 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     out_bytes = out.numel() * 4
     mp = bins.pair_records.shape[1]
     # records read (64 B per emitted pair), tile ranges, the output and its
-    # cotangent read, the (16, MP) gradient written
+    # cotangent read for the tiles that have pairs, the (16, MP) gradient
+    # written
+    nonempty = int((bins.tile_counts > 0).sum())
     b2_bound, b2_by = M.U.bound(
-        64 * num_pairs + 8 * ntx * nty + 2 * out_bytes + 64 * mp,
+        64 * num_pairs + 8 * ntx * nty
+        + 2 * nonempty * R.OUT_CHANNELS * ts * ts * 4 + 64 * mp,
         B2_OPS_PER_EVALUATION * evaluations)
     # three channels of the tiles and the target read, the gradient written
     b3_bound, b3_by = M.U.bound(
@@ -489,13 +511,13 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
              source=f"{PACKAGE}/csrc/rasterize_bwd.cu", replaces=B2_REPLACES,
              launches=train_launches["B2"], max_abs_err=float(
                  (drec - drec_p).abs().max()),
-             ms=b2_ms, plain_ms=b2_plain_ms, bound_ms=b2_bound,
+             **b2_times, plain_ms=b2_plain_ms, bound_ms=b2_bound,
              bound_by=b2_by, library_ms=None),
         dict(name="B3 fused_loss", route="cuda",
              source=f"{PACKAGE}/csrc/fused_loss.cu", replaces=B3_REPLACES,
              launches=train_launches["B3"], max_abs_err=float(
                  (g_tile - g_tile_p).abs().max()),
-             ms=b3_ms, plain_ms=b3_plain_ms, bound_ms=b3_bound,
+             **b3_times, plain_ms=b3_plain_ms, bound_ms=b3_bound,
              bound_by=b3_by, library_ms=None),
         b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
                name="B5-tile tile_chw", route="cuda",
@@ -536,9 +558,10 @@ def ssim_kernels(torch, M, height, width, card):
     repeat, and B4c against B4a and B4b (value rel 1e-6, gradient relative
     L2 1e-5). Then the one-pass path, ``1 - fused_ssim(precompute_grad=
     True)`` under autograd, with the launch counts set to 0 just before and
-    read just after: it must launch B4c once and B4a, B4b never. Times from
-    CUDA events, bounds, plain times. Returns the three kernel rows, B4a's
-    and B4b's launches left for the split training run to fill in."""
+    read just after: it must launch B4c once and B4a, B4b never. Profiler
+    and CUDA-event times, bounds, plain times. Returns the three kernel
+    rows, B4a's and B4b's launches left for the split training run to fill
+    in."""
     S = M.S
     c1, c2 = S.L.C1, S.L.C2
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -589,13 +612,14 @@ def ssim_kernels(torch, M, height, width, card):
     target_zero = not dy_path.any()
     del x, y, dx_path, dy_path
 
-    b4a_ms = M.U.cuda_ms(lambda: S._ssim_sum_cuda(a, b, c1, c2), iters=10)
-    b4b_ms = M.U.cuda_ms(lambda: S._ssim_grad_cuda(a, b, g, c1, c2, False),
-                         iters=10)
+    b4a_times = profiled(M, lambda: S._ssim_sum_cuda(a, b, c1, c2),
+                         ("ssim_sum_kernel", "sum_partials_kernel"))
+    b4b_times = profiled(M, lambda: S._ssim_grad_cuda(a, b, g, c1, c2, False),
+                         ("ssim_grad_kernel",))
     b4b_target_ms = M.U.cuda_ms(lambda: S._ssim_grad_cuda(
         a, b, g, c1, c2, True), iters=10)
-    b4c_ms = M.U.cuda_ms(lambda: S._ssim_value_grad_cuda(
-        a, b, c1, c2, False), iters=10)
+    b4c_times = profiled(M, lambda: S._ssim_value_grad_cuda(
+        a, b, c1, c2, False), ("ssim_grad_kernel", "sum_partials_kernel"))
     with torch.no_grad():
         b4a_plain_ms = M.U.cuda_ms(lambda: S.ssim_sum_reference(
             a, b, c1, c2), iters=3)
@@ -613,17 +637,17 @@ def ssim_kernels(torch, M, height, width, card):
         dict(name="B4a ssim_sum", route="cuda",
              source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4A_REPLACES,
              launches=None, max_abs_err=abs(float(value) - float(value_p)),
-             ms=b4a_ms, plain_ms=b4a_plain_ms, bound_ms=b4a_bound,
+             **b4a_times, plain_ms=b4a_plain_ms, bound_ms=b4a_bound,
              bound_by=b4a_by, library_ms=None),
         dict(name="B4b ssim_grad", route="cuda",
              source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4B_REPLACES,
-             launches=None, max_abs_err=b_max, ms=b4b_ms,
+             launches=None, max_abs_err=b_max, **b4b_times,
              plain_ms=b4b_plain_ms, bound_ms=b4b_bound, bound_by=b4b_by,
              library_ms=None),
         dict(name="B4c ssim_value_grad", route="cuda",
              source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4C_REPLACES,
              launches=vg_launches["ssim_value_grad"], max_abs_err=c_max,
-             ms=b4c_ms, plain_ms=b4c_plain_ms, bound_ms=b4c_bound,
+             **b4c_times, plain_ms=b4c_plain_ms, bound_ms=b4c_bound,
              bound_by=b4c_by, library_ms=None),
     ]
     emit("ssim_kernels", shape=[3, height, width], kernels=rows,
@@ -1324,7 +1348,8 @@ def main() -> int:
         b5_ok = torch.equal(chw, chw_plain)
 
         # -- times
-        b1_ms = M.U.cuda_ms(lambda: R.rasterize_pairs(*args), iters=10)
+        b1_times = profiled(M, lambda: R.rasterize_pairs(*args),
+                            ("rasterize_fwd_kernel",))
         b1_plain_ms = M.U.cuda_ms(
             lambda: R.rasterize_pairs_reference(*args), iters=1,
             warmup=0)
@@ -1380,7 +1405,7 @@ def main() -> int:
             dict(name="B1 rasterize_fwd", route="cuda",
                  source=f"{PACKAGE}/csrc/rasterize_fwd.cu",
                  replaces=B1_REPLACES, launches=launches["B1"],
-                 max_abs_err=max(b1_err), ms=b1_ms, plain_ms=b1_plain_ms,
+                 max_abs_err=max(b1_err), **b1_times, plain_ms=b1_plain_ms,
                  bound_ms=b1_bound, bound_by=b1_by, library_ms=None),
             b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
                    name="B5-untile untile_chw", route="cuda",

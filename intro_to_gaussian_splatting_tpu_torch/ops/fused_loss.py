@@ -39,14 +39,22 @@ from intro_to_gaussian_splatting_tpu_torch.train import loss as L
 TILE_SIZE = 16
 
 FUSED_LOSS_SOURCE = KernelSource("fused_loss", ("-fmad=false",))
+
+
+class _Taps(ctypes.Structure):
+    """The 11 window taps, passed to the kernel by value."""
+    _fields_ = [("k", ctypes.c_float * L.WINDOW)]
+
+
 FUSED_LOSS = CudaKernel(FUSED_LOSS_SOURCE, "fused_loss", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p,
+    _Taps, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ])
+# the kernel's output regions: 2 x 4 tiles per block, 3 partial sums each
+_REGION_TILES = (2, 4)
 
 
 def _check(tiles, target, ntx, nty, ts, h, w):
@@ -95,18 +103,18 @@ def _fused_loss_cuda(tiles, target, ntx, nty, ts, h, w, ssim_weight):
     if tiles.stride(3) != 1 or tiles.stride(2) != ts * ts:
         raise ValueError("each tile's pixels must be contiguous")
     ng, c, gt, pix = tiles.shape
-    taps = torch.from_numpy(L.ssim_kernel1d()).to(dev)
+    taps = _Taps((ctypes.c_float * L.WINDOW)(*L.ssim_kernel1d().tolist()))
     hw, ww = h - L.WINDOW + 1, w - L.WINDOW + 1
     n_pix, n_win = 3.0 * h * w, 3.0 * hw * ww
-    coef = torch.empty((3, 3, hw, ww), dtype=torch.float32, device=dev)
-    n_part = (3 * (-(-ww // 32)) * (-(-hw // 16)) + 2 * 3 * ntx * nty)
+    rows, cols = _REGION_TILES
+    n_part = 3 * 3 * (-(-nty // rows)) * (-(-ntx // cols))
     partial = torch.empty((n_part,), dtype=torch.float32, device=dev)
     grad = torch.empty((ng, c, gt, pix), dtype=torch.float32, device=dev)
     sums = torch.empty((3,), dtype=torch.float32, device=dev)
     FUSED_LOSS.launch(
         tiles.data_ptr(), tiles.stride(0), tiles.stride(1), gt, ntx, nty,
-        target.data_ptr(), h, w, taps.data_ptr(), L.C1, L.C2,
-        (1.0 - ssim_weight) / n_pix, -ssim_weight / n_win, coef.data_ptr(),
+        target.data_ptr(), h, w, taps, L.C1, L.C2,
+        (1.0 - ssim_weight) / n_pix, -ssim_weight / n_win,
         partial.data_ptr(), grad.data_ptr(), c, ng, sums.data_ptr(),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     loss = ((1.0 - ssim_weight) * (sums[0] / n_pix)

@@ -274,6 +274,9 @@ def _rasterize_bwd_cuda(records, tile_starts, tile_counts, out, g_tile,
                 or not t.is_contiguous() or t.device != records.device):
             raise ValueError(f"{name} must be a contiguous float32 {shape} "
                              f"tensor on {records.device}")
+    # the kernel reads each thread's 4 pixels as one float4
+    out, g_tile = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (out, g_tile))
     drec = torch.empty_like(records)
     dev = records.device
     RASTERIZE_BWD.launch(

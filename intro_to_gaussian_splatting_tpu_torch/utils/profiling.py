@@ -13,6 +13,8 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
                            ``torch.profiler``'s events;
   * ``device_ms_in_turns(...)``  two functions' mean kernel durations
                            from ``torch.profiler``, timed in turns;
+  * ``device_ms_per_call(...)``  one function's device time per call
+                           under ``torch.profiler``, by kernel name;
   * ``cuda_ms``, ``device_profile``  a function's mean device time from
                            CUDA events, and one call's kernel time, wall
                            time and idle share under the profiler;
@@ -152,6 +154,26 @@ def device_ms_in_turns(a, b, per_turn: int = 15):
                        for e in _kernel_events(prof))
     return tuple((sum(d) / len(d) if d else float("nan"), len(d))
                  for d in durs)
+
+
+def device_ms_per_call(fn, calls: int = 24, warmup: int = 1) -> dict:
+    """``fn`` called ``calls`` times under torch.profiler. Returns, for
+    each kernel (or copy) name its calls launched, (device ms per call,
+    launches timed): the name's mean duration times its launches per
+    call, so that a launch the profiler misses does not count as no
+    time."""
+    for _ in range(warmup):
+        fn()
+    _sync()
+    with torch.profiler.profile(activities=_activities()) as prof:
+        for _ in range(calls):
+            fn()
+        _sync()
+    durs = {}
+    for e in _kernel_events(prof):
+        durs.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    return {name: (sum(d) / len(d) * max(1, round(len(d) / calls)), len(d))
+            for name, d in durs.items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

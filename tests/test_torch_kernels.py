@@ -101,8 +101,10 @@ def _scene(device, n, width, height, seed, opacity_hi=4.0,
     return model, cam
 
 
-def _bins(case, device):
-    kw, cfg = CASES[case]
+def _bins(case, device, cfg=None):
+    """The scene of ``CASES[case]`` binned with its config (or ``cfg``)."""
+    kw, case_cfg = CASES[case]
+    cfg = cfg or case_cfg
     model, cam = _scene(device, **kw)
     ntx, nty = tile_grid(cam.width, cam.height, cfg.tile_size)
     with torch.no_grad():
@@ -293,11 +295,63 @@ def test_render_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(renders["cuda"], renders["cpu"], **TOL)
 
 
+def _pair_stream(counts, opacity, scale, seed, device, ts=16, gt=4):
+    """A hand-made (tile, depth)-sorted pair stream: ``counts[t]`` pairs in
+    tile t, means inside the tile, opacities uniform in ``opacity``, axis
+    scales (pixels) uniform in ``scale``, 37 junk sentinel columns after the
+    last pair. Returns (config, num_groups, (records, tile_starts,
+    tile_counts))."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    n = int(counts.sum())
+    rec = rng.uniform(-5.0, 5.0, size=(16, n + 37)).astype(np.float32)
+    rec[0:2, :n] = rng.uniform(-2.0, ts + 1.0, size=(2, n))
+    sx, sy = rng.uniform(*scale, size=(2, n))
+    rho = rng.uniform(-0.6, 0.6, size=n)
+    det = (sx * sy) ** 2 * (1.0 - rho ** 2)
+    rec[2, :n] = sy ** 2 / det                 # the inverse covariance
+    rec[3, :n] = -rho * sx * sy / det
+    rec[4, :n] = sx ** 2 / det
+    rec[5, :n] = rng.uniform(*opacity, size=n)
+    rec[6:10, :n] = np.array([[0.0], [ts - 1.0], [0.0], [ts - 1.0]])
+    rec[10, :n] = np.repeat(np.arange(len(counts)), counts)
+    rec[11:15, :n] = rng.uniform(0.0, 1.0, size=(4, n))
+    rec[15, :n] = 1.0
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    cfg = RasterizerConfig(tile_size=ts, group_tiles=gt, groups_per_step=1)
+    return cfg, num_groups_for(len(counts), cfg), tuple(
+        torch.as_tensor(a, device=device) for a in (rec, starts, counts))
+
+
+def _scene_stream(case, device, cfg=None):
+    cfg, ng, bins = _bins(case, device, cfg)
+    return cfg, ng, (bins.pair_records, bins.tile_starts, bins.tile_counts)
+
+
+# B2's inputs: the scenes of CASES; one tile of 2,100 faint pairs among
+# empty and one-pair tiles (a skewed load); dense opaque tiles where every
+# pixel exits within a few pairs and the block stops (zeros for the rest);
+# the early-exit scene at tile size 32
+B2_CASES = {
+    **{case: (lambda dev, case=case: _scene_stream(case, dev))
+       for case in CASES},
+    "skewed_2100": lambda dev: _pair_stream(
+        [0, 1, 0, 2100, 1, 0, 0, 1, 0, 0, 1, 0, 3, 0, 1, 0, 0, 1],
+        (0.001, 0.008), (1.5, 16.0), 21, dev),
+    "dense_all_exit": lambda dev: _pair_stream(
+        [90, 70, 200, 33, 64, 65, 1, 128], (0.97, 0.999), (48.0, 96.0), 22,
+        dev),
+    "ts32_early_exit": lambda dev: _scene_stream(
+        "early_exit", dev,
+        RasterizerConfig(tile_size=32, chunk_size=128, pairs_per_gaussian=32,
+                         group_tiles=2)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(B2_CASES))
 def test_b2_kernel_matches_plain_on_card(case, cuda_device):
-    cfg, ng, bins = _bins(case, cuda_device)
-    args = (bins.pair_records, bins.tile_starts, bins.tile_counts)
+    cfg, ng, args = B2_CASES[case](cuda_device)
     out = tr.rasterize_pairs(*args, ng, cfg)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     g = torch.randn(out.shape, generator=gen, device=cuda_device)
@@ -311,8 +365,14 @@ def test_b2_kernel_matches_plain_on_card(case, cuda_device):
     for row in GRAD_ROWS:
         assert rel_l2(got[row], want[row]) <= 1e-4, row
     assert not got[[6, 7, 8, 9, 10, 15]].any()
-    total = int(bins.tile_counts.sum())
+    total = int(args[2].sum())
     assert not got[:, total:].any()
+    # exact zeros wherever the plain version has them (pairs past every
+    # pixel's exit among them); the dense case must have such pairs
+    exited = ~want.any(dim=0)
+    assert not got[:, exited].any()
+    if case == "dense_all_exit":
+        assert int(exited[:total].sum()) > 300
 
 
 def _loss_inputs(device, h, w, seed):
@@ -333,7 +393,8 @@ def _loss_inputs(device, h, w, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(75, 90), (64, 128)])
+@pytest.mark.parametrize("h,w", [(75, 90), (64, 128), (11, 40), (40, 11),
+                                 (33, 200), (130, 70), (3324, 5068)])
 def test_b3_kernel_matches_plain_on_card(h, w, cuda_device):
     tiles, target, ntx, nty, inside = _loss_inputs(cuda_device, h, w, 0)
     args = (tiles, target, ntx, nty, 16, h, w, 0.2)
