@@ -35,12 +35,16 @@ JAX, and prints one JSON line per phase:
   knn_init        the same scene at the KNN scale init with the dense pool
                   (pairs_per_gaussian=585, group_tiles=16, groups_per_step=16);
   *_kernels       per scene, B1 and B5-untile against their plain versions
-                  on the scene's real inputs, their times (B1's device ms
+                  on the scene's real inputs (B1 within rtol 1e-4, its
+                  bit-equality reported beside the gate), their times (B1's
+                  device ms
                   per call under torch.profiler, at least 20 launches
                   timed, the CUDA-event ms beside it, as for every B1-B4
                   row; B5-untile and its library call timed in turns,
                   torch.profiler's device durations with the CUDA-event
-                  figures beside them, bytes and GB/s), bounds, plain and
+                  figures beside them, bytes and GB/s), bounds (B1's
+                  counting the pairs up to each tile's last exit, the
+                  figure over all pairs beside it), plain and
                   library times; the whole ``render_tiled`` on a host clock,
                   its stages, and one call under torch.profiler; at
                   ref_init also ``render_tiled`` at ``group_tiles=1``
@@ -50,7 +54,8 @@ JAX, and prints one JSON line per phase:
                   just before and read just after: per step loss, PSNR and
                   launches of B1, B2 and B3; step time on a host clock
                   around synchronised steps (mean of steps 2-10) and as
-                  Mpix/s; stage times; one step under torch.profiler; peak
+                  Mpix/s; stage times; one step under torch.profiler (its
+                  kernel ms, idle share and each port kernel's ms); peak
                   memory;
   train_knn_init  the same at the KNN init and the dense pool;
   render_grad_*   the gradient of a ``render_tiled`` image on the card, the
@@ -61,7 +66,8 @@ JAX, and prints one JSON line per phase:
                   B5-untile) the library call's; the step's gradients
                   from two backward passes bit for bit equal;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
-                  3x3324x5068 images, times, bounds, plain times; the
+                  3x3324x5068 images (B4b and B4c at both grad_target
+                  settings), times, bounds, plain times; the
                   one-pass path ``fused_ssim(precompute_grad=True)`` under
                   autograd, counted (B4c once);
   train_split_ref_init    ten split-loss ``train_step``s at ref_init, each
@@ -148,6 +154,18 @@ B4C_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:210"
 B4A_OPS_PER_PIXEL = 3 + 2 * 5 * 21 + 22
 B4B_OPS_PER_PIXEL = B4A_OPS_PER_PIXEL + 15 + 2 * 3 * 21 + 6
 B4C_OPS_PER_PIXEL = B4B_OPS_PER_PIXEL + 1
+
+# The port's kernels by a substring of their names in a profile: each
+# profiled step and render reports the ms and launches of each
+PORT_KERNELS = {
+    "B1": "rasterize_fwd_kernel", "B2": "rasterize_bwd_kernel",
+    "B3": "fused_loss_kernel", "B4a": "ssim_sum_kernel",
+    "B4b/c": "ssim_grad_kernel", "B5-untile": "::untile_chw_kernel",
+    "B5-tile": "::tile_chw_kernel",
+}
+# Record rows B1 reads per pair: mean, conic, opacity and the 5 payload
+# rows; 4 more with the pixel-bbox test
+B1_ROWS, B1_BBOX_ROWS = 11, 15
 
 P1_REPLACES = "scripts/probe_kernel.py:31"
 P2_REPLACES = "scripts/probe_kernel.py:55"
@@ -338,7 +356,7 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
                  for n in M.PARAM_NAMES)
     step_ms = sum(secs[1:]) / len(secs[1:]) * 1e3
     extra = after() if after else {}
-    profile = M.U.device_profile(step)
+    profile = M.U.device_profile(step, PORT_KERNELS)
     emit(phase, gaussians=model.capacity, steps=rows,
          launches_in_run=launches, step_ms_mean_2_on=step_ms,
          train_step_mpix_per_s=mpix / (step_ms / 1e3), **extra,
@@ -433,7 +451,7 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
                                cfg)
         args = (bins.pair_records, bins.tile_starts, bins.tile_counts)
         out = R.rasterize_pairs(*args, ng, cfg)
-        _, evaluations = R.rasterize_pairs_reference(
+        _, evaluations, _ = R.rasterize_pairs_reference(
             *args, ng, cfg, count_evaluations=True)
         loss_args = (out, target, ntx, nty, ts, h, w, 0.2)
         loss, mse, g_tile = FL._fused_loss_cuda(*loss_args)
@@ -555,11 +573,13 @@ def ssim_kernels(torch, M, height, width, card):
     versions on seeded (3, H, W) images of the training path's size: the
     value (rel 1e-5), the gradients (relative L2 1e-4), the target's
     gradient exactly 0 without grad_target, each bit for bit equal on
-    repeat, and B4c against B4a and B4b (value rel 1e-6, gradient relative
-    L2 1e-5). Then the one-pass path, ``1 - fused_ssim(precompute_grad=
+    repeat, and B4c (both grad_target settings) against B4a and B4b (value
+    rel 1e-6, gradient relative L2 1e-5; bit-equality reported). Then the
+    one-pass path, ``1 - fused_ssim(precompute_grad=
     True)`` under autograd, with the launch counts set to 0 just before and
     read just after: it must launch B4c once and B4a, B4b never. Profiler
-    and CUDA-event times, bounds, plain times. Returns the three kernel
+    and CUDA-event times (the grad_target instances of B4b and B4c timed
+    too), bounds, plain times. Returns the three kernel
     rows, B4a's and B4b's launches left for the split training run to fill
     in."""
     S = M.S
@@ -596,7 +616,18 @@ def ssim_kernels(torch, M, height, width, card):
     c_grad_err = rel_l2(torch, ux, ux_b)
     c_plain_err = rel_l2(torch, ux, uxp)
     c_max = float((ux - uxp).abs().max())
+    c_bit_equal = dict(value_to_b4a=torch.equal(v_c, value),
+                       grad_to_b4b=torch.equal(ux, ux_b))
     del ux, ux_b, uxp
+    # the grad_target instance of B4c, gated as the other: against B4a's
+    # value and B4b's two gradients at unit cotangent, and on repeat
+    v_t, ux, uy = S._ssim_value_grad_cuda(a, b, c1, c2, True)
+    again = S._ssim_value_grad_cuda(a, b, c1, c2, True)
+    ux_b, uy_b = S._ssim_grad_cuda(a, b, one, c1, c2, True)
+    ct_value_err = abs(float(v_t) - float(value)) / abs(float(value))
+    ct_grad_err = [rel_l2(torch, ux, ux_b), rel_l2(torch, uy, uy_b)]
+    ct_repeat = all(torch.equal(p, q) for p, q in zip((v_t, ux, uy), again))
+    del ux, uy, again, ux_b, uy_b
 
     # the one-pass path through the entry point
     x = a.clone().requires_grad_(True)
@@ -616,10 +647,12 @@ def ssim_kernels(torch, M, height, width, card):
                          ("ssim_sum_kernel", "sum_partials_kernel"))
     b4b_times = profiled(M, lambda: S._ssim_grad_cuda(a, b, g, c1, c2, False),
                          ("ssim_grad_kernel",))
-    b4b_target_ms = M.U.cuda_ms(lambda: S._ssim_grad_cuda(
-        a, b, g, c1, c2, True), iters=10)
+    b4b_target = profiled(M, lambda: S._ssim_grad_cuda(
+        a, b, g, c1, c2, True), ("ssim_grad_kernel",))
     b4c_times = profiled(M, lambda: S._ssim_value_grad_cuda(
         a, b, c1, c2, False), ("ssim_grad_kernel", "sum_partials_kernel"))
+    b4c_target = profiled(M, lambda: S._ssim_value_grad_cuda(
+        a, b, c1, c2, True), ("ssim_grad_kernel", "sum_partials_kernel"))
     with torch.no_grad():
         b4a_plain_ms = M.U.cuda_ms(lambda: S.ssim_sum_reference(
             a, b, c1, c2), iters=3)
@@ -653,18 +686,23 @@ def ssim_kernels(torch, M, height, width, card):
     emit("ssim_kernels", shape=[3, height, width], kernels=rows,
          b4a_value_rel_err=a_err, b4a_bit_equal_on_repeat=a_repeat,
          b4b_grad_rel_l2=b_err, b4b_bit_equal_on_repeat=b_repeat,
-         b4b_grad_target_ms=b4b_target_ms,
+         b4b_grad_target_times=b4b_target,
          b4c_value_rel_err_vs_b4a=c_value_err,
          b4c_grad_rel_l2_vs_b4b=c_grad_err,
          b4c_grad_rel_l2_vs_plain=c_plain_err,
-         b4c_bit_equal_on_repeat=c_repeat,
+         b4c_bit_equal_on_repeat=c_repeat, b4c_bit_equal=c_bit_equal,
+         b4c_grad_target_times=b4c_target,
+         b4c_grad_target_value_rel_err_vs_b4a=ct_value_err,
+         b4c_grad_target_grad_rel_l2_vs_b4b=ct_grad_err,
+         b4c_grad_target_bit_equal_on_repeat=ct_repeat,
          one_pass_path_launches=vg_launches,
          target_grad_exactly_zero=target_zero,
          gradient_shape="(3, H, W): no storage outside the image",
          library_ms_null_reason="no single PyTorch call computes SSIM",
          tolerance=("B4a value rel 1e-5; B4b gradient relative L2 1e-4; "
                     "B4c vs B4a value rel 1e-6, vs B4b gradient relative "
-                    "L2 1e-5; bit-equal on repeat"),
+                    "L2 1e-5, both grad_target settings; bit-equal on "
+                    "repeat"),
          card=card)
     check(a_err <= 1e-5 and a_repeat,
           f"B4a disagrees with its plain version: {a_err}, {a_repeat}")
@@ -675,6 +713,9 @@ def ssim_kernels(torch, M, height, width, card):
           and c_repeat,
           f"B4c disagrees with B4a/B4b or its plain version: {c_value_err}, "
           f"{c_grad_err}, {c_plain_err}, {c_repeat}")
+    check(ct_value_err <= 1e-6 and max(ct_grad_err) <= 1e-5 and ct_repeat,
+          f"B4c (grad_target) disagrees with B4a/B4b: {ct_value_err}, "
+          f"{ct_grad_err}, {ct_repeat}")
     check(vg_launches["ssim_value_grad"] == 1
           and vg_launches["ssim_sum"] == vg_launches["ssim_grad"] == 0,
           f"one-pass SSIM path: {vg_launches}")
@@ -1337,11 +1378,13 @@ def main() -> int:
                 cfg)
         with torch.no_grad():
             tiles = R.rasterize_pairs(*args)
-            plain, evaluations = R.rasterize_pairs_reference(
+            plain, evaluations, pairs_read = R.rasterize_pairs_reference(
                 *args, count_evaluations=True)
         torch.cuda.synchronize()
         b1_err = (tiles - plain).abs().amax(dim=(0, 2, 3)).tolist()
         b1_ok = torch.allclose(tiles, plain, rtol=1e-4, atol=1e-5)
+        # reported beside the gate, which alone decides
+        b1_bit_equal = torch.equal(tiles, plain)
         chw = L.untile_chw_fast(tiles, ntx, nty, ts, height, width)
         chw_plain = L.untile_chw(tiles[:, :3], ntx, nty, ts, height, width)
         b5_err = float((chw - chw_plain).abs().max())
@@ -1353,10 +1396,17 @@ def main() -> int:
         b1_plain_ms = M.U.cuda_ms(
             lambda: R.rasterize_pairs_reference(*args), iters=1,
             warmup=0)
-        b1_bytes = (64 * num_pairs + 8 * ntx * nty
-                    + R.OUT_CHANNELS * tiles[0, 0].numel() * ng * 4)
-        b1_bound, b1_by = M.U.bound(b1_bytes,
-                                    B1_OPS_PER_EVALUATION * evaluations)
+        # the rows B1 reads of the pairs up to each tile's last exit (T is
+        # monotone, so the kernel stops there exactly), the tile ranges,
+        # the output written; beside it the earlier figure, which counted
+        # all 16 rows of every pair
+        b1_rows = B1_BBOX_ROWS if cfg.compat.pixel_bbox_test else B1_ROWS
+        out_bytes = R.OUT_CHANNELS * tiles[0, 0].numel() * ng * 4
+        b1_bytes = 4 * b1_rows * pairs_read + 8 * ntx * nty + out_bytes
+        b1_ops = B1_OPS_PER_EVALUATION * evaluations
+        b1_bound, b1_by = M.U.bound(b1_bytes, b1_ops)
+        b1_bound_all_pairs = M.U.bound(
+            64 * num_pairs + 8 * ntx * nty + out_bytes, b1_ops)[0]
         b5_plain_ms = M.U.cuda_ms(lambda: L.untile_chw(
             tiles[:, :3], ntx, nty, ts, height, width), iters=10)
         # the library yardstick: the tile -> image-row transposition as one
@@ -1384,7 +1434,7 @@ def main() -> int:
         render_ms = sum(reps) / len(reps)
         stages = stage_times(torch, model, cam, cfg, ntx, nty, ng,
                              project_gaussians, bin_gaussians, R, L)
-        device = M.U.device_profile(whole)
+        device = M.U.device_profile(whole, PORT_KERNELS)
 
         # the layout of one tile per group: more groups than the grid's
         # 65,535 in y and z, the same image as the default layout (binning
@@ -1406,7 +1456,8 @@ def main() -> int:
                  source=f"{PACKAGE}/csrc/rasterize_fwd.cu",
                  replaces=B1_REPLACES, launches=launches["B1"],
                  max_abs_err=max(b1_err), **b1_times, plain_ms=b1_plain_ms,
-                 bound_ms=b1_bound, bound_by=b1_by, library_ms=None),
+                 bound_ms=b1_bound, bound_by=b1_by,
+                 bound_ms_all_pairs=b1_bound_all_pairs, library_ms=None),
             b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
                    name="B5-untile untile_chw", route="cuda",
                    source=f"{PACKAGE}/csrc/untile_chw.cu",
@@ -1416,8 +1467,10 @@ def main() -> int:
         ]
         emit(f"{scene}_kernels", kernels=rows,
              b1_max_abs_err_per_channel=b1_err, b1_within_tolerance=b1_ok,
-             b1_tolerance="rtol 1e-4, atol 1e-5", b1_evaluations=evaluations,
-             b1_bytes=b1_bytes, b5_exactly_equal=b5_ok,
+             b1_tolerance="rtol 1e-4, atol 1e-5",
+             b1_bit_equal_to_plain=b1_bit_equal, b1_evaluations=evaluations,
+             b1_pairs_read=pairs_read, b1_bytes=b1_bytes,
+             b5_exactly_equal=b5_ok,
              render_tiled_ms=reps, render_tiled_mean_ms=render_ms,
              render_tiled_mpix_per_s=mpix / (render_ms / 1e3),
              stages_host_ms=stages, device_profile=device,

@@ -126,8 +126,11 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     takes pair k of every tile that has one (tiles sorted by count, so the
     active set is a prefix) and updates all their pixels at once, with the
     kernel's arithmetic in the kernel's order. With ``count_evaluations``
-    also returns the number of (pair, pixel) evaluations the inputs need up
-    to each pixel's exit, the work the kernel must do.
+    returns ``(out, evaluations, pairs_read)``: the number of (pair, pixel)
+    evaluations the inputs need up to each pixel's exit, the work the kernel
+    must do, and the number of pairs it must read, each tile's pairs up to
+    the one at which its last pixel exits (all of a tile's pairs where some
+    pixel never exits).
     """
     _check_pairs(records, tile_starts, tile_counts, num_groups, config)
     ts = config.tile_size
@@ -145,6 +148,7 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     alive = torch.ones((nt, pix), dtype=torch.bool, device=dev)
     acc = torch.zeros((OUT_CHANNELS, nt, pix), device=dev)
     evaluations = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs_read = torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(max_count):
         na = int(active[k])
         rec = records[:, starts[:na] + k]                  # (16, na)
@@ -153,6 +157,7 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
         live = alive[:na]
         if count_evaluations:
             evaluations += live.sum()
+            pairs_read += live.any(dim=1).sum()
         t_incl = t_prev * (1.0 - a)
         keep = live & (t_incl >= config.t_threshold)
         w = t_prev * a
@@ -167,7 +172,7 @@ def rasterize_pairs_reference(records, tile_starts, tile_counts,
     out = out.reshape(OUT_CHANNELS, num_groups, gt, pix).permute(1, 0, 2, 3)
     out = out.contiguous()
     if count_evaluations:
-        return out, int(evaluations)
+        return out, int(evaluations), int(pairs_read)
     return out
 
 

@@ -36,7 +36,9 @@ from intro_to_gaussian_splatting_tpu_torch.ops.cuda_build import (
 from intro_to_gaussian_splatting_tpu_torch.train import loss as L
 
 HALO = L.WINDOW - 1
-BLOCK_ROWS, BLOCK_COLS = 16, 32     # the kernels' tile of windows / pixels
+# B4a's tile of window tops; B4c adds its windows into the same partial
+# slots, so that its value is B4a's bit for bit
+BLOCK_ROWS, BLOCK_COLS = 16, 32
 
 SSIM_SOURCE = KernelSource("ssim", ("-fmad=false",))
 _COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

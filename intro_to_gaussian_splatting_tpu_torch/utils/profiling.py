@@ -192,9 +192,11 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, named: Optional[dict] = None) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, the ms the
-    card spent in kernels, the idle share, and the five longest kernels."""
+    card spent in kernels, the idle share, the five longest kernels and,
+    for each ``label: name`` of ``named``, the ms and launches of the
+    kernels whose names contain ``name``."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=_activities()) as prof:
         t0 = time.perf_counter()
@@ -206,8 +208,14 @@ def device_profile(fn) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:5]
+    by_label = {
+        label: [sum(e.self_device_time_total for e in kernels
+                    if name in e.key) / 1e3,
+                sum(e.count for e in kernels if name in e.key)]
+        for label, name in (named or {}).items()}
     return dict(wall_ms=wall_ms, kernel_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                 kernel_launches=sum(e.count for e in kernels),
                 top_kernels=[[e.key[:80], e.self_device_time_total / 1e3,
-                              e.count] for e in top])
+                              e.count] for e in top],
+                named_kernel_ms=by_label)

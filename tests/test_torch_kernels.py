@@ -204,20 +204,6 @@ def test_tile_chw_fast_takes_three_channels():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_b1_kernel_matches_plain_on_card(case, cuda_device):
-    cfg, ng, bins = _bins(case, cuda_device)
-    args = (bins.pair_records, bins.tile_starts, bins.tile_counts, ng, cfg)
-    before = tr.RASTERIZE_FWD.launches
-    got = tr.rasterize_pairs(*args)
-    torch.cuda.synchronize()
-    assert tr.RASTERIZE_FWD.launches == before + 1
-    torch.testing.assert_close(got, tr.rasterize_pairs_reference(*args),
-                               **TOL)
-    assert got.abs().sum() > 0
-
-
-@pytest.mark.cuda
 def test_b1_kernel_checks_its_inputs(cuda_device):
     cfg, ng, bins = _bins("partial_tiles", cuda_device)
     with pytest.raises(ValueError, match="tile_starts"):
@@ -346,6 +332,23 @@ B2_CASES = {
         RasterizerConfig(tile_size=32, chunk_size=128, pairs_per_gaussian=32,
                          group_tiles=2)),
 }
+
+
+# B1 takes the same inputs as B2: several batches, tiles that never exit,
+# tiles with thousands of pairs, tile size 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(B2_CASES))
+def test_b1_kernel_matches_plain_on_card(case, cuda_device):
+    cfg, ng, args = B2_CASES[case](cuda_device)
+    before = tr.RASTERIZE_FWD.launches
+    got = tr.rasterize_pairs(*args, ng, cfg)
+    torch.cuda.synchronize()
+    assert tr.RASTERIZE_FWD.launches == before + 1
+    want = tr.rasterize_pairs_reference(*args, ng, cfg)
+    torch.testing.assert_close(got, want, **TOL)
+    # kernel and plain version round alike step by step: bit for bit equal
+    assert torch.equal(got, want)
+    assert got.abs().sum() > 0
 
 
 @pytest.mark.cuda
@@ -512,10 +515,12 @@ def _ssim_images(device, h, w, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(32, 48), (77, 131)])
+# the last two cut the kernels' regions of pixels on every side
+@pytest.mark.parametrize("h,w", [(32, 48), (77, 131), (11, 11), (45, 75)])
 def test_b4_kernels_match_plain_on_card(h, w, cuda_device):
     """B4a, B4b (both grad_target settings) and B4c against their plain
-    versions; B4c against B4a and B4b; each the same on repeat."""
+    versions; B4c against B4a and B4b (its value B4a's bit for bit); each
+    the same on repeat."""
     a, b = _ssim_images(cuda_device, h, w, 0)
     c1, c2 = ts.L.C1, ts.L.C2
     g = torch.tensor(0.7, device=cuda_device)
@@ -539,13 +544,18 @@ def test_b4_kernels_match_plain_on_card(h, w, cuda_device):
         v, ux, uy = ts._ssim_value_grad_cuda(a, b, c1, c2, gt)
         one = ts._ssim_grad_cuda(a, b, torch.ones((), device=cuda_device),
                                  c1, c2, gt)
+        v2, ux2, uy2 = ts._ssim_value_grad_cuda(a, b, c1, c2, gt)
+        assert torch.equal(v, v2) and torch.equal(ux, ux2)
+        assert (uy is None) if not gt else torch.equal(uy, uy2)
         assert float(v) == pytest.approx(float(value), rel=1e-6)
+        # B4c adds its windows as B4a does: the same value bit for bit
+        assert torch.equal(v, value)
         assert rel_l2(ux, one[0]) <= 1e-5
         assert (uy is None) if not gt else rel_l2(uy, one[1]) <= 1e-5
     torch.cuda.synchronize()
     assert [k.launches for k in (ts.SSIM_SUM, ts.SSIM_GRAD,
                                  ts.SSIM_VALUE_GRAD)] == [
-        before[0] + 2, before[1] + 6, before[2] + 2]
+        before[0] + 2, before[1] + 6, before[2] + 4]
 
 
 @pytest.mark.cuda

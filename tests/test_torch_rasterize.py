@@ -143,19 +143,23 @@ def test_rasterize_backward_matches_pallas(case):
 
 def test_evaluation_count_stops_at_each_pixel_exit():
     """The plain version counts the (pair, pixel) evaluations up to each
-    pixel's exit: all of them with a threshold nothing reaches, fewer
-    with early exit."""
+    pixel's exit and the pairs read up to each tile's last exit: every
+    pair and evaluation with a threshold nothing reaches, fewer
+    evaluations with early exit."""
     cfg, ng, bins = _bins("multi_chunk_early_exit")
     args = _port_args(bins)
     pairs = int(np.asarray(bins.tile_counts).sum())
     pix = cfg.tile_size ** 2
-    _, ev = tr.rasterize_pairs_reference(*args, ng, port_config(cfg),
-                                         count_evaluations=True)
+    _, ev, read = tr.rasterize_pairs_reference(*args, ng, port_config(cfg),
+                                               count_evaluations=True)
     never = dataclasses.replace(port_config(cfg), t_threshold=0.0)
-    _, ev_all = tr.rasterize_pairs_reference(*args, ng, never,
-                                             count_evaluations=True)
-    assert ev_all == pairs * pix
+    _, ev_all, read_all = tr.rasterize_pairs_reference(
+        *args, ng, never, count_evaluations=True)
+    assert ev_all == pairs * pix and read_all == pairs
     assert 0 < ev < ev_all
+    # a tile's pixels exit at different pairs: at least one evaluation per
+    # pair read, at most every pixel of it
+    assert 0 < read <= read_all and read <= ev <= read * pix
 
 
 @pytest.mark.parametrize("w,h,ts,gt", [(84, 52, 16, 4), (85, 52, 32, 4)],
