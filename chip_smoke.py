@@ -67,7 +67,8 @@ JAX, and prints one JSON line per phase:
                   from two backward passes bit for bit equal;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
                   3x3324x5068 images (B4b and B4c at both grad_target
-                  settings), times, bounds, plain times; the
+                  settings), B4c's value B4a's bit for bit, times (B4a's
+                  two kernels apart), bounds, plain times; the
                   one-pass path ``fused_ssim(precompute_grad=True)`` under
                   autograd, counted (B4c once);
   train_split_ref_init    ten split-loss ``train_step``s at ref_init, each
@@ -79,8 +80,10 @@ JAX, and prints one JSON line per phase:
                   the counts set to 0 just before and read just after, P1
                   exactly zero, P2 against its plain version on the
                   script's inputs and on seeded random ones, times from
-                  CUDA events and torch.profiler, bounds, plain times, P1's
-                  library call;
+                  CUDA events and torch.profiler, bounds, P2's issue-slot
+                  floor (the instructions of its row loop in the built
+                  kernel's SASS, cuobjdump), plain times, P1's library
+                  call;
   checkpoint_ref_init  ten ``Trainer`` steps at ref_init saving at steps 5
                   and 10, a fresh Trainer resumed from step 5 to 10
                   bit-equal to them, retention, save / load ms and bytes;
@@ -236,13 +239,16 @@ def profiled(M, fn, names, calls=24):
     """A B1-B4 kernel's time: its wrapper called ``calls`` times under
     torch.profiler, the device ms per call of the kernels whose names
     contain one of ``names`` (at least 20 launches of the first must be
-    timed), and the wrapper's mean time from CUDA events beside it."""
+    timed), each name's share apart, and the wrapper's mean time from CUDA
+    events beside it."""
     by_name = M.U.device_ms_per_call(fn, calls)
     mine = {n: v for n, v in by_name.items() if any(k in n for k in names)}
     timed = sum(v[1] for n, v in mine.items() if names[0] in n)
     check(timed >= 20, f"{names[0]}: the profiler timed {timed} of {calls} "
                        f"launches ({sorted(by_name)})")
     return dict(ms=sum(v[0] for v in mine.values()), profiler_launches=timed,
+                kernel_ms={k: sum(v[0] for n, v in mine.items() if k in n)
+                           for k in names},
                 cuda_event_ms=M.U.cuda_ms(fn, iters=10))
 
 
@@ -262,6 +268,65 @@ def b5_row(times, nbytes, library_bytes, **fields):
                 / 1e6,
                 library_cuda_event_ms=times["library_cuda_event_ms"],
                 library_profiler_launches=times["library_profiler_launches"])
+
+
+SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+
+
+def sass_inner_loop(sass: str, kernel: str) -> list:
+    """The opcodes of the innermost loop of ``kernel`` (a substring of its
+    mangled name) in ``cuobjdump -sass`` output whose body holds a MUFU
+    op: the instructions from a backward branch's target to the branch."""
+    ins, mine = [], False
+    for line in sass.splitlines():
+        if "Function : " in line:
+            mine = kernel in line
+            continue
+        m = SASS_INSTRUCTION.search(line)
+        if mine and m:
+            op = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2)).split()[0]
+            ins.append((int(m.group(1), 16), op, m.group(2)))
+    bodies = []
+    for addr, op, text in ins:
+        target = re.search(r"0x([0-9a-f]+)", text)
+        start = int(target.group(1), 16) if target else addr + 1
+        if op.startswith("BRA") and start <= addr:
+            body = [o for a, o, _ in ins if start <= a <= addr]
+            if any(o.startswith("MUFU") for o in body):
+                bodies.append(body)
+    check(bool(bodies), f"{kernel}: no loop with a MUFU op in its SASS")
+    return min(bodies, key=len)
+
+
+def p2_issue_floor(torch, M, elements: int) -> dict:
+    """P2's issue-slot floor from the built kernel's SASS: the instructions
+    of its row loop per (row, lane) element (each element has two expf, one
+    MUFU.EX2 each; log1pf has none) times the elements, over the SMs' issue
+    rate (4 schedulers of 32 lanes, one instruction a cycle each) at the
+    card's highest SM clock as nvidia-smi reads it."""
+    body = sass_inner_loop(M.cuda_build.sass(M.P.SOURCE),
+                           "probe_window_kernel")
+    per_body = sum(o == "MUFU.EX2" for o in body) / 2
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split("\n")[0].split(",")
+    max_mhz, now_mhz = (float(c) for c in clocks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_element = len(body) / per_body
+    by_opcode = {}
+    for o in body:
+        by_opcode[o] = by_opcode.get(o, 0) + 1 / per_body
+    return dict(loop_instructions=len(body), elements_per_loop=per_body,
+                instructions_per_element=per_element,
+                mufu_per_element=sum(v for o, v in by_opcode.items()
+                                     if o.startswith("MUFU")),
+                opcodes_per_element=dict(sorted(
+                    by_opcode.items(), key=lambda kv: -kv[1])),
+                elements=elements, sms=sms, sm_clock_max_mhz=max_mhz,
+                sm_clock_mhz=now_mhz,
+                issue_floor_ms=per_element * elements
+                / (sms * 4 * 32 * max_mhz * 1e6) * 1e3)
 
 
 def rel_l2(torch, got, want) -> float:
@@ -627,6 +692,7 @@ def ssim_kernels(torch, M, height, width, card):
     ct_value_err = abs(float(v_t) - float(value)) / abs(float(value))
     ct_grad_err = [rel_l2(torch, ux, ux_b), rel_l2(torch, uy, uy_b)]
     ct_repeat = all(torch.equal(p, q) for p, q in zip((v_t, ux, uy), again))
+    ct_value_to_b4a = torch.equal(v_t, value)
     del ux, uy, again, ux_b, uy_b
 
     # the one-pass path through the entry point
@@ -695,14 +761,15 @@ def ssim_kernels(torch, M, height, width, card):
          b4c_grad_target_value_rel_err_vs_b4a=ct_value_err,
          b4c_grad_target_grad_rel_l2_vs_b4b=ct_grad_err,
          b4c_grad_target_bit_equal_on_repeat=ct_repeat,
+         b4c_grad_target_value_bit_equal_to_b4a=ct_value_to_b4a,
          one_pass_path_launches=vg_launches,
          target_grad_exactly_zero=target_zero,
          gradient_shape="(3, H, W): no storage outside the image",
          library_ms_null_reason="no single PyTorch call computes SSIM",
          tolerance=("B4a value rel 1e-5; B4b gradient relative L2 1e-4; "
-                    "B4c vs B4a value rel 1e-6, vs B4b gradient relative "
-                    "L2 1e-5, both grad_target settings; bit-equal on "
-                    "repeat"),
+                    "B4c vs B4a value rel 1e-6 and bit-equal, vs B4b "
+                    "gradient relative L2 1e-5, both grad_target "
+                    "settings; bit-equal on repeat"),
          card=card)
     check(a_err <= 1e-5 and a_repeat,
           f"B4a disagrees with its plain version: {a_err}, {a_repeat}")
@@ -716,6 +783,10 @@ def ssim_kernels(torch, M, height, width, card):
     check(ct_value_err <= 1e-6 and max(ct_grad_err) <= 1e-5 and ct_repeat,
           f"B4c (grad_target) disagrees with B4a/B4b: {ct_value_err}, "
           f"{ct_grad_err}, {ct_repeat}")
+    # B4a and B4c add the same windows in the same order
+    check(c_bit_equal["value_to_b4a"] and ct_value_to_b4a,
+          f"B4a's value is not B4c's bit for bit: {c_bit_equal}, "
+          f"grad_target {ct_value_to_b4a}")
     check(vg_launches["ssim_value_grad"] == 1
           and vg_launches["ssim_sum"] == vg_launches["ssim_grad"] == 0,
           f"one-pass SSIM path: {vg_launches}")
@@ -730,9 +801,9 @@ def probes(torch, np, M, card):
     to 0 just before and read just after. Then P1 into a NaN-filled buffer
     exactly equal to zeros, and P2 against its plain version on the
     script's inputs and on seeded random ones (relative L2 1e-6), bit-equal
-    on repeat; CUDA-event times, ns per program, bounds, plain times and
-    P1's library call (``torch.empty(...).zero_()``). Returns the two
-    kernel rows."""
+    on repeat; CUDA-event times, ns per program, bounds, P2's issue-slot
+    floor from its SASS, plain times and P1's library call
+    (``torch.empty(...).zero_()``). Returns the two kernel rows."""
     P, PK, U = M.P, M.PK, M.U
     nt, out_shape = P.NT, (P.NT, P.OUT_ROWS, P.PIX)
     torch.cuda.synchronize()
@@ -788,9 +859,11 @@ def probes(torch, np, M, card):
               -1)
     rows_read = int((np.cumsum(cover)[:P.MP] > 0).sum())
     p1_bound, p1_by = U.bound(out_bytes, 0)
+    elements = P.G * P.PIX * int(nchunks.sum())
     p2_bound, p2_by = U.bound(
         out_bytes + 8 * nt + 4 * P.REC_COLS * rows_read,
-        P.P2_OPS_PER_ELEMENT * P.G * P.PIX * int(nchunks.sum()))
+        P.P2_OPS_PER_ELEMENT * elements)
+    p2_sass = p2_issue_floor(torch, M, elements)
     source = f"{PACKAGE}/csrc/probe.cu"
     rows = [
         dict(name="P1 probe_zero", route="cuda", source=source,
@@ -801,14 +874,14 @@ def probes(torch, np, M, card):
              replaces=P2_REPLACES, launches=launches["probe_window"],
              max_abs_err=p2["script"]["max_abs_err"], ms=p2_ms,
              plain_ms=p2_plain_ms, bound_ms=p2_bound, bound_by=p2_by,
-             library_ms=None),
+             issue_floor_ms=p2_sass["issue_floor_ms"], library_ms=None),
     ]
     emit("probes", programs=nt, kernels=rows, launches_in_run=launches,
          profiler_ms={k: [d * 1e3 for d in v] for k, v in durs.items()},
          ns_per_program={"P1": p1_ms * 1e6 / nt, "P2": p2_ms * 1e6 / nt,
                          "P2_seeded_random": p2_random_ms * 1e6 / nt},
          p2_seeded_random_ms=p2_random_ms, p1_exactly_zero=p1_equal, p2=p2,
-         p2_table_rows_read=rows_read,
+         p2_table_rows_read=rows_read, p2_sass=p2_sass,
          library_ms_null_reason={
              "P2": "no single PyTorch call computes this function"},
          tolerance="P1 exact; P2 relative L2 1e-6", card=card)
@@ -1104,6 +1177,7 @@ def main() -> int:
 
     M = types.SimpleNamespace(
         R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E, LS=LS,
+        cuda_build=cuda_build,
         TrainConfig=TrainConfig, RasterizerConfig=RasterizerConfig,
         PARAM_NAMES=PARAM_NAMES, tile_grid=tile_grid,
         num_groups_for=num_groups_for, bin_gaussians=bin_gaussians,

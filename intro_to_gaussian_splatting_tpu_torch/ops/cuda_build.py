@@ -10,7 +10,8 @@ No PyTorch header is compiled, so a build takes seconds. The library name
 carries a hash of the source and the flags, so an edited source is rebuilt;
 a build writes to a temporary name and renames, so concurrent processes do
 not see half-written files. ``ptxas``'s report (registers, shared memory,
-spills) is kept beside each library as ``<library>.log``.
+spills) is kept beside each library as ``<library>.log``; ``sass`` dumps a
+built library's machine code.
 
 The build directory is ``_build/`` inside the package, or
 ``$GSTPU_TORCH_BUILD_DIR``. Nothing here runs at import time.
@@ -92,6 +93,15 @@ def build(sources: Sequence[KernelSource]) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return out
+
+
+def sass(source: KernelSource) -> str:
+    """The SASS of ``source``'s built library (``cuobjdump -sass``, beside
+    nvcc in the CUDA toolkit)."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or str(Path(nvcc_path()).parent / "cuobjdump"))
+    return subprocess.run([cuobjdump, "-sass", str(source.library())],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def ptxas_report(source: KernelSource) -> str:

@@ -170,7 +170,7 @@ def probe_window(starts: torch.Tensor, counts: torch.Tensor,
     """P2 (see ``probe_window_reference``) through the kernel for tensors
     on the card, the plain version for tensors on the CPU. ``starts`` and
     ``counts`` are (NT,) int32 and >= 0, ``rec`` a contiguous (MP, 128)
-    float32 table."""
+    float32 table (16-byte aligned on the card)."""
     if not rec.is_cuda:
         return probe_window_reference(starts, counts, rec)
     nt = starts.shape[0]
@@ -181,6 +181,9 @@ def probe_window(starts: torch.Tensor, counts: torch.Tensor,
             or rec.shape[1] != REC_COLS or not rec.is_contiguous()):
         raise ValueError("probe_window takes a contiguous (MP, 128) float32 "
                          "table")
+    if rec.data_ptr() % 16:
+        raise ValueError("probe_window reads the table's rows as float4s: "
+                         "it takes a 16-byte aligned table")
     if not (starts.device == counts.device == rec.device):
         raise ValueError("probe_window's inputs must be on one card")
     starts, counts = starts.contiguous(), counts.contiguous()

@@ -36,8 +36,9 @@ from intro_to_gaussian_splatting_tpu_torch.ops.cuda_build import (
 from intro_to_gaussian_splatting_tpu_torch.train import loss as L
 
 HALO = L.WINDOW - 1
-# B4a's tile of window tops; B4c adds its windows into the same partial
-# slots, so that its value is B4a's bit for bit
+# the tile of window tops whose SSIM goes into one partial slot: B4a and
+# B4c add each tile's windows in the same order, so that B4c's value is
+# B4a's bit for bit
 BLOCK_ROWS, BLOCK_COLS = 16, 32
 
 SSIM_SOURCE = KernelSource("ssim", ("-fmad=false",))

@@ -515,8 +515,11 @@ def _ssim_images(device, h, w, seed):
 
 
 @pytest.mark.cuda
-# the last two cut the kernels' regions of pixels on every side
-@pytest.mark.parametrize("h,w", [(32, 48), (77, 131), (11, 11), (45, 75)])
+# (11, 11) and (45, 75) cut the kernels' regions of pixels on every side;
+# the last two cut B4a's 32 x 64 region of window tops on both axes and
+# span several of them
+@pytest.mark.parametrize("h,w", [(32, 48), (77, 131), (11, 11), (45, 75),
+                                 (75, 203), (140, 267)])
 def test_b4_kernels_match_plain_on_card(h, w, cuda_device):
     """B4a, B4b (both grad_target settings) and B4c against their plain
     versions; B4c against B4a and B4b (its value B4a's bit for bit); each
@@ -609,11 +612,13 @@ def test_split_train_step_gradients_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("inputs", ["script", "seeded_random"])
+@pytest.mark.parametrize("inputs", ["script", "seeded_random",
+                                    "multi_chunk"])
 def test_probe_kernels_match_plain_on_card(inputs, cuda_device):
     """P1 overwrites every element of its output with 0 (exact); P2 within
     relative L2 1e-6 of its plain version (float32 sums in another order),
-    bit-equal on repeat, rows past the table read as 0."""
+    bit-equal on repeat, rows past the table read as 0; "multi_chunk" has
+    programs of no chunk (counts 0) and of three to five."""
     nt, mp = 3000, 1 << 14
     buf = torch.full((nt, 8, 256), float("nan"), device=cuda_device)
     tp._probe_zero_cuda(buf)
@@ -623,6 +628,13 @@ def test_probe_kernels_match_plain_on_card(inputs, cuda_device):
         args = tp.probe_inputs(nt, mp, device=cuda_device)
     else:
         args = tp.probe_random_inputs(nt, mp, seed=1, device=cuda_device)
+    if inputs == "multi_chunk":
+        counts = np.random.default_rng(2).integers(0, 130, size=nt)
+        counts[::5] = 0
+        args = (args[0], torch.from_numpy(counts.astype(np.int32)).to(
+            cuda_device), args[2])
+        chunks = tp.window_chunks(*args[:2])[1]
+        assert int((chunks == 0).sum()) > 0 and int(chunks.max()) >= 3
     got = tp.probe_window(*args)
     want = tp.probe_window_reference(*args)
     assert rel_l2(got, want) <= 1e-6
