@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: the render path, the training
 step with the fused or the split loss, batched steps, the probe kernels,
-checkpoint / resume, evaluation and the CLI.
+checkpoint / resume, evaluation, training over a device mesh and the CLI.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -91,8 +91,33 @@ JAX, and prints one JSON line per phase:
                   B5-untile once per view) against PSNR / SSIM recomputed
                   from ``render_tiled``, and a PLY export / import / render
                   round trip;
+  mesh_ref_init   the mesh path (parallel/) in a world of one rank on the
+                  card, through NCCL, at the ref_init scene, ``ring=True``:
+                  the first step's loss and gradients (parameters and the
+                  densify probe) against the single-card ``train_step``'s
+                  on the same model (loss rel 1e-5, relative L2 1e-4), bit
+                  for bit the same on repeat, ``ring=False`` against
+                  ``ring=True`` (its bit-equality reported); then ten
+                  ``sharded_train_step``s counted from 0 as above (B1 and
+                  B2 once per step, B3 never; the loss falling), step ms
+                  beside the single-card step's, peak memory;
+  mesh_knn_init   the same at the KNN init and the dense pool;
+  mesh_trainer_small  ``Trainer(mesh=...)`` at the small scene: six steps
+                  with densify, prune and the opacity reset; a mesh
+                  checkpoint / resume bit-equal to the straight run, and
+                  the mesh's checkpoint resumed by a single-card Trainer,
+                  equal too;
+  mesh_2rank_ref_init  with two cards or more, a 2-rank NCCL mesh in two
+                  processes of this script at ref_init: the losses
+                  identical on both ranks, the first step's loss and
+                  gathered gradients equal to the 1x1 mesh's; with one card
+                  a line that says it did not run, and why;
   cli_small       ``cli.main`` in-process on a small synthetic scene: info,
-                  train, train --resume, eval, points, bench, on the card.
+                  train, train --resume, eval, points, bench and train
+                  --multihost in a world of one rank, on the card.
+
+Every phase line carries ``phase_seconds``, the seconds since the line
+before it.
 
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
@@ -174,7 +199,14 @@ P1_REPLACES = "scripts/probe_kernel.py:31"
 P2_REPLACES = "scripts/probe_kernel.py:55"
 
 
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    """One phase's JSON line, with the seconds since the previous line."""
+    now = time.perf_counter()
+    fields["phase_seconds"] = now - _PHASE_CLOCK[0]
+    _PHASE_CLOCK[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -395,7 +427,7 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
     fall and the parameters stay finite. Emits the phase line (step ms on a
     host clock, mean of steps 2 on; Mpix/s; the fields ``after()`` returns,
     called after the steps; one step under torch.profiler; peak memory over
-    the steps) and returns the launch totals by symbol."""
+    the steps) and returns the launch totals by symbol and the step ms."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in M.ALL_KERNELS:
@@ -434,7 +466,7 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
     check(rows[-1]["loss"] < rows[0]["loss"],
           f"{phase}: loss did not fall ({rows[0]['loss']} -> "
           f"{rows[-1]['loss']})")
-    return launches
+    return launches, step_ms
 
 
 def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
@@ -458,7 +490,8 @@ def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
 def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
     """The training main path: ``steps`` train_steps of the default
     TrainConfig, each launching B1, B2 and B3 once (``run_steps``), then
-    the stage times of three more. Returns the launch totals by kernel."""
+    the stage times of three more. Returns the launch totals by kernel and
+    the step ms."""
     tcfg = M.TrainConfig()
     step, state = make_step(M, M.T.train_step, model, cam,
                             (None, None, target), cfg, tcfg)
@@ -469,11 +502,12 @@ def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
             state["opt"], state["densify"])
         return dict(stages_host_ms=sums)
 
-    launches = run_steps(
+    launches, step_ms = run_steps(
         torch, M, f"train_{scene}", step, model,
         {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1}, steps,
         cam.width * cam.height / 1e6, card, after=stages)
-    return {"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]}
+    return ({"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]},
+            step_ms)
 
 
 def render_grad_run(torch, M, scene, model, cam, target_hwc, cfg, card):
@@ -1050,21 +1084,292 @@ def eval_run(torch, M, model, cams, targets, tmp, card):
     check(ply_err <= 1e-6, f"eval_ref_init: PLY round trip {ply_err}")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_first_step(M, model, cam, target_hwc, cfg, mesh, ring):
+    """The mesh path's loss and gradients of one step (no update), and
+    this rank's strip of the target."""
+    SP = M.SP
+    strip_rows, padded_h = SP.strip_layout(cam.height, cfg.tile_size,
+                                           mesh.size)
+    row0 = mesh.rank * strip_rows
+    target = SP.pad_rows(target_hwc, padded_h)[
+        row0:row0 + strip_rows].contiguous()
+    loss, grads, aux = SP.sharded_loss_and_grads(
+        SP.shard_model(model, mesh), cam, target, mesh, cfg,
+        M.TrainConfig().ssim_weight, ring=ring)
+    return loss, grads, aux, target
+
+
+def mesh_run(torch, M, scene, make_model, cam, target_hwc, cfg, mesh,
+             single_ms, card, steps=10):
+    """The mesh path at world size 1 (NCCL), ``ring=True``: the first
+    step's loss and gradients (parameters and probe) against the single-card
+    ``train_step``'s (fused loss B3) on the same model, bit for bit the same
+    on repeat, ``ring=False`` against ``ring=True``; then ``steps``
+    ``sharded_train_step``s (``run_steps``: B1 and B2 once per step, B3
+    never, the loss falling), step ms beside the single-card step's.
+    Returns (B1 and B2 launches, the first step's loss and gradients)."""
+    model = make_model()
+    target_chw = target_hwc.permute(2, 0, 1).contiguous()
+    loss_1, _, _, _, grads_1 = M.T.camera_loss_and_grads(
+        model, cam, None, None, target_chw, cfg, M.TrainConfig())
+    loss_m, grads_m, aux, target = mesh_first_step(M, model, cam, target_hwc,
+                                                   cfg, mesh, True)
+    loss_2, grads_2, _, _ = mesh_first_step(M, model, cam, target_hwc, cfg,
+                                            mesh, True)
+    loss_g, grads_g, _, _ = mesh_first_step(M, model, cam, target_hwc, cfg,
+                                            mesh, False)
+    torch.cuda.synchronize()
+    first = dict(
+        loss_mesh=float(loss_m), loss_single_card=float(loss_1),
+        loss_rel_err=abs(float(loss_m) - float(loss_1)) / float(loss_1),
+        grad_rel_l2_vs_single_card={
+            k: rel_l2(torch, grads_m[k], grads_1[k]) for k in grads_1},
+        bit_equal_on_repeat=(torch.equal(loss_m, loss_2) and all(
+            torch.equal(grads_m[k], grads_2[k]) for k in grads_m)),
+        ring_false_loss_rel_err=abs(float(loss_g) - float(loss_m))
+        / float(loss_m),
+        ring_false_grad_rel_l2={k: rel_l2(torch, grads_g[k], grads_m[k])
+                                for k in grads_m},
+        ring_false_bit_equal=(torch.equal(loss_g, loss_m) and all(
+            torch.equal(grads_g[k], grads_m[k]) for k in grads_m)),
+        ring_false_grad_rel_l2_vs_single_card={
+            k: rel_l2(torch, grads_g[k], grads_1[k]) for k in grads_1},
+        overflowed=bool(aux["overflowed"]),
+        ring_demand=float(aux["ring_demand"]),
+        ring_emitted=float(aux["ring_emitted"]),
+        tolerance="loss rel 1e-5; gradients relative L2 1e-4")
+    del grads_2, grads_g
+
+    shard = M.SP.shard_model(model, mesh)
+    del model
+    tcfg = M.TrainConfig()
+    tx = M.T.make_optimizer(tcfg, 10.0)
+    state = {"opt": tx.init({n: getattr(shard, n) for n in M.PARAM_NAMES}),
+             "densify": M.D.DensifyState.zero(shard.capacity, mesh.device)}
+
+    def step():
+        _, state["opt"], state["densify"], metrics = M.SP.sharded_train_step(
+            shard, state["opt"], state["densify"], cam, target, mesh, cfg,
+            tcfg, tx)
+        return metrics
+
+    launches, _ = run_steps(
+        torch, M, f"mesh_{scene}", step, shard,
+        {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 0}, steps,
+        cam.width * cam.height / 1e6, card,
+        after=lambda: dict(mesh=mesh.shape, ring=True, first_step=first,
+                           single_card_step_ms=single_ms))
+    check(first["loss_rel_err"] <= 1e-5,
+          f"mesh_{scene}: loss differs from the single card: {first}")
+    check(max(first["grad_rel_l2_vs_single_card"].values()) <= 1e-4,
+          f"mesh_{scene}: gradients differ from the single card: {first}")
+    check(first["bit_equal_on_repeat"],
+          f"mesh_{scene}: two passes on the card differ")
+    check(first["ring_false_loss_rel_err"] <= 1e-5
+          and max(first["ring_false_grad_rel_l2"].values()) <= 1e-4,
+          f"mesh_{scene}: ring=False differs from ring=True: {first}")
+    check(not first["overflowed"], f"mesh_{scene}: the pair pool overflowed")
+    return ({"B1": launches["rasterize_fwd"], "B2": launches["rasterize_bwd"]},
+            (loss_m, grads_m))
+
+
+def mesh_trainer_run(torch, M, make_model, cam, target_hwc, cfg, mesh, tmp,
+                     card):
+    """``Trainer(mesh=...)`` on the card at a small scene: six steps with
+    densify every 2 steps from step 2, prune and an opacity reset at step
+    5; then, with densify off, six steps saving at 3 and 6 and a fresh mesh
+    Trainer resumed from step 3 to 6, bit-equal to them, and the mesh's
+    checkpoint resumed by a single-card Trainer, equal too."""
+    T = M.T
+    tcfg = M.TrainConfig(iterations=6, densify_start=2, densify_interval=2,
+                         densify_grad_threshold=0.0, opacity_reset_interval=5)
+
+    def trainer(tcfg, m=mesh, **kw):
+        return T.Trainer(model=make_model(), cameras=[cam],
+                         targets=[target_hwc], scene_extent=2.0, rcfg=cfg,
+                         tcfg=tcfg, log_every=2, mesh=m, **kw)
+
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    densified = trainer(tcfg)
+    history = densified.run(6)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS if k.launches}
+    initial = int(make_model().active.sum())
+
+    ckpt = os.path.join(tmp, "mesh_ckpt")
+    plain = dataclasses.replace(tcfg, densify_start=10 ** 9,
+                                checkpoint_every=3)
+    straight = trainer(plain, checkpoint_dir=ckpt)
+    straight.run(6)
+    resumed = trainer(plain, checkpoint_dir=ckpt)
+    restored = resumed.resume(ckpt, step=3)
+    resumed.run(3)
+    one_card = trainer(plain, m=None)
+    one_card.resume(ckpt, step=6)
+    want = straight.gathered_model()
+    equal = {
+        name: {n: torch.equal(getattr(got, n), getattr(want, n))
+               for n in M.PARAM_NAMES + ("active",)}
+        for name, got in (("resumed", resumed.gathered_model()),
+                          ("single_card_from_mesh_checkpoint",
+                           one_card.model))}
+    emit("mesh_trainer_small", mesh=mesh.shape, history=history,
+         launches=launches, initial_active=initial, restored_step=restored,
+         bit_equal_to_straight=equal, card=card)
+    check(len(history) == 3 and all(math.isfinite(m["loss"])
+                                    for m in history),
+          f"mesh_trainer_small: {history}")
+    check(history[-1]["num_active"] > initial,
+          "mesh_trainer_small: densify added no gaussian")
+    check(min(launches.get(k, 0) for k in ("rasterize_fwd",
+                                           "rasterize_bwd")) >= 6
+          and "fused_loss" not in launches,
+          f"mesh_trainer_small: launches {launches}")
+    check(restored == 3 and all(all(v.values()) for v in equal.values()),
+          f"mesh_trainer_small: resume differs: {equal}")
+
+
+def mesh_two_ranks(torch, M, first_1x1, tmp, card):
+    """Where there are two cards, a 2-rank NCCL mesh (2x1) at ref_init in
+    two processes of this script: the first step's loss on both ranks
+    identical and equal to the 1x1 mesh's, its gathered gradients too, and
+    three steps' losses identical and falling. With one card, says so."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("mesh_2rank_ref_init", ran=False,
+             reason=f"torch.cuda.device_count() is {n}: a 2-rank NCCL "
+                    f"mesh needs two cards", card=card)
+        return
+    port, out = free_port(), os.path.join(tmp, "mesh2.pt")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), "--world", "2", "--port", str(port), "--out", out],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(all(p.returncode == 0 for p in procs),
+          f"mesh_2rank_ref_init: a rank failed: {texts}")
+    ranks = [json.loads(next(line for line in reversed(t.splitlines())
+                             if line.startswith('{"rank"')))
+             for t in texts]
+    grads = torch.load(out)
+    loss_1, grads_1 = first_1x1
+    err = {k: rel_l2(torch, grads[k].to(grads_1[k].device), grads_1[k])
+           for k in grads_1}
+    loss_err = abs(ranks[0]["first_loss"] - float(loss_1)) / float(loss_1)
+    emit("mesh_2rank_ref_init", ran=True, ranks=ranks,
+         loss_rel_err_vs_1x1=loss_err, grad_rel_l2_vs_1x1=err,
+         tolerance="loss rel 1e-5; gradients relative L2 1e-4", card=card)
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and ranks[0]["first_loss"] == ranks[1]["first_loss"],
+          f"mesh_2rank_ref_init: the ranks' losses differ: {ranks}")
+    check(loss_err <= 1e-5 and max(err.values()) <= 1e-4,
+          f"mesh_2rank_ref_init: differs from the 1x1 mesh: {loss_err}, "
+          f"{err}")
+    check(ranks[0]["losses"][-1] < ranks[0]["losses"][0],
+          "mesh_2rank_ref_init: the loss did not fall")
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of ``mesh_two_ranks``: ``chip_smoke.py --mesh-rank R
+    --world N --port P --out FILE``. Prints its losses as the last line;
+    rank 0 saves the first step's gathered gradients to FILE."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    opts = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(opts["--mesh-rank"]), int(opts["--world"])
+    sys.path.insert(0, str(REPO))
+    from intro_to_gaussian_splatting_tpu_torch.config import (
+        RasterizerConfig, TrainConfig,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.io.synthetic import (
+        random_point_cloud, ring_cameras,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.models import (
+        init_from_points, make_camera,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
+        PARAM_NAMES,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.parallel import (
+        multihost as MH, sharded as SP,
+    )
+    from intro_to_gaussian_splatting_tpu_torch.train import densify as D
+    from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
+
+    device = MH.init_multihost(f"127.0.0.1:{opts['--port']}", world, rank)
+    try:
+        mesh = MH.global_mesh(device=device)
+        width, height = 5068, 3324
+        xyz, rgb = random_point_cloud(52363, seed=0, extent=10.0)
+        qvec, tvec = ring_cameras(1, width, height, radius=14.0, z=3.0,
+                                  seed=0)[0]
+        cam = make_camera(0.78 * width, 0.78 * width, width, height, qvec,
+                          tvec, device=device)
+        model = init_from_points(xyz, rgb, device=device)
+        cfg, tcfg = RasterizerConfig(), TrainConfig()
+        row0, rows = MH.process_local_rows(height, cfg.tile_size, mesh)
+        target = torch.as_tensor(
+            gradient_target(np, width, height)[row0:row0 + rows],
+            device=device)
+        target = SP.pad_rows(target, rows).contiguous()
+        shard = SP.shard_model(model, mesh)
+        loss, grads, _ = SP.sharded_loss_and_grads(
+            shard, cam, target, mesh, cfg, tcfg.ssim_weight)
+        whole = {k: MH.gather_rows(g, mesh).cpu() for k, g in grads.items()}
+        tx = T.make_optimizer(tcfg, 10.0)
+        opt = tx.init({n: getattr(shard, n) for n in PARAM_NAMES})
+        dstate = D.DensifyState.zero(shard.capacity, device)
+        losses = []
+        for _ in range(3):
+            _, opt, dstate, metrics = SP.sharded_train_step(
+                shard, opt, dstate, cam, target, mesh, cfg, tcfg, tx)
+            losses.append(float(metrics["loss"]))
+        if rank == 0:
+            torch.save(whole, opts["--out"])
+        print(json.dumps(dict(rank=rank, mesh=mesh.shape,
+                              first_loss=float(loss), losses=losses)),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def cli_run(torch, M, tmp, card):
     """The CLI in-process on a small synthetic COLMAP scene with ground
     truth (300 points, 3 cameras, 64x48, its images rendered on the card):
     info, train (12 steps, holdout 3, checkpoints, eval at the end),
     train --resume to 18, eval with saved renders, points against the
-    stored keypoints, bench. Each must exit 0 and each but info (which
-    only reads the model files) print device=cuda; the training loss
-    falls, the artifacts appear, the resume continues from step 12.
-    Launches per command."""
+    stored keypoints, bench, and train --multihost in a world of one
+    rank (NCCL, 6 steps through the mesh path). Each must exit 0 and each
+    but info (which only reads the model files) print device=cuda; the
+    training loss falls, the artifacts appear, the resume continues from
+    step 12. Launches per command."""
     from intro_to_gaussian_splatting_tpu_torch import cli
     from intro_to_gaussian_splatting_tpu_torch.io.synthetic import (
         make_colmap_scene,
     )
 
     scene, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+    out_mh = os.path.join(tmp, "out_multihost")
     make_colmap_scene(scene, num_points=300, num_cameras=3, width=64,
                       height=48, seed=5, write_images=True, device="cuda")
     ply = os.path.join(out, "point_cloud.ply")
@@ -1081,6 +1386,10 @@ def cli_run(torch, M, tmp, card):
         "points": ["points", scene, "-o", os.path.join(out, "points.ppm"),
                    "--compare-keypoints"],
         "bench": ["bench", scene, "--iters", "3"],
+        "train_multihost": [
+            "train", scene, "--multihost", "--coordinator",
+            f"127.0.0.1:{free_port()}", "--num-processes", "1",
+            "--process-id", "0", "--iterations", "6", "--out-dir", out_mh],
     }
     results, texts = {}, {}
     for name, argv in commands.items():
@@ -1120,6 +1429,12 @@ def cli_run(torch, M, tmp, card):
     check("eval[holdout]" in texts["train"] and "mean" in texts["eval"]
           and "keypoint overlay" in texts["points"]
           and "ms/frame" in texts["bench"], "cli_small: missing output")
+    mh = results["train_multihost"]["launches"]
+    check("multihost: rank 0 of 1" in texts["train_multihost"]
+          and all(os.path.exists(os.path.join(out_mh, a)) for a in artifacts)
+          and mh.get("rasterize_fwd", 0) >= 6
+          and mh.get("rasterize_bwd", 0) >= 6 and "fused_loss" not in mh,
+          f"cli_small: train --multihost: {results['train_multihost']}")
 
 
 def main() -> int:
@@ -1172,12 +1487,15 @@ def main() -> int:
         GRAD_ROWS, project_gaussians,
     )
     from intro_to_gaussian_splatting_tpu_torch.ops.render import render
+    from intro_to_gaussian_splatting_tpu_torch.parallel import (
+        multihost as MH, sharded as SP,
+    )
 
     import numpy as np
 
     M = types.SimpleNamespace(
         R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E, LS=LS,
-        cuda_build=cuda_build,
+        SP=SP, cuda_build=cuda_build,
         TrainConfig=TrainConfig, RasterizerConfig=RasterizerConfig,
         PARAM_NAMES=PARAM_NAMES, tile_grid=tile_grid,
         num_groups_for=num_groups_for, bin_gaussians=bin_gaussians,
@@ -1360,12 +1678,17 @@ def main() -> int:
     # slots, densify every 2 steps from step 2, an opacity reset at step 5
     pool = {k: np.concatenate([v, v[:1].repeat(len(v), axis=0)])
             for k, v in train_arrays.items()}
-    model = small_model("cuda", pool)
-    with torch.no_grad():
-        model.active[len(train_arrays["means"]):] = False
-        model.opacity_logits[len(train_arrays["means"]):] = -20.0
-    cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, qvec, tvec,
-                      device="cuda")
+
+    def pool_model():
+        model = small_model("cuda", pool)
+        with torch.no_grad():
+            model.active[len(train_arrays["means"]):] = False
+            model.opacity_logits[len(train_arrays["means"]):] = -20.0
+        return model
+
+    model = pool_model()
+    cam = small_cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h,
+                                  qvec, tvec, device="cuda")
     tcfg = TrainConfig(iterations=6, densify_start=2, densify_interval=2,
                        densify_grad_threshold=0.0, opacity_reset_interval=5)
     for k in M.ALL_KERNELS:
@@ -1565,9 +1888,10 @@ def main() -> int:
     target_hwc = torch.as_tensor(gradient_target(np, width, height),
                                  device="cuda")
     target = target_hwc.permute(2, 0, 1).contiguous()
+    single_step_ms = {}
     for scene, (model, cfg) in scenes.items():
-        launches = train_run(torch, M, scene, model, cam, target, cfg,
-                             card)
+        launches, single_step_ms[scene] = train_run(torch, M, scene, model,
+                                                    cam, target, cfg, card)
         grad_launches, g_img = render_grad_run(torch, M, scene, model, cam,
                                                target_hwc, cfg, card)
         rows = train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
@@ -1591,7 +1915,7 @@ def main() -> int:
     one_each = {k.symbol: 1 for k in (R.RASTERIZE_FWD, R.RASTERIZE_BWD,
                                       S.SSIM_SUM, S.SSIM_GRAD, L.UNTILE_CHW,
                                       L.TILE_CHW)}
-    split_launches = run_steps(torch, M, "train_split_ref_init", split_step,
+    split_launches, _ = run_steps(torch, M, "train_split_ref_init", split_step,
                                model, dict(one_each, fused_loss=0), 10, mpix,
                                card)
     b4_rows[0]["launches"] = split_launches["ssim_sum"]
@@ -1615,7 +1939,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the probes, then checkpoint / resume and evaluation at the ref_init
-    # scene, and the CLI on a small scene, in a directory of the checkout
+    # scene, the mesh path, and the CLI on a small scene, in a directory of
+    # the checkout
     p_rows = probes(torch, np, M, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke-") as tmp:
@@ -1625,6 +1950,39 @@ def main() -> int:
         eval_targets.append(eval_targets[0][:, ::-1].copy())
         eval_run(torch, M, trained, [index_camera(cams, i) for i in (0, 1)],
                  eval_targets, tmp, card)
+        del trained, cams
+        torch.cuda.empty_cache()
+
+        # -- the mesh path in a world of one rank on the card (NCCL): the
+        # treehill scene at both inits, the mesh Trainer at the small scene,
+        # and a 2-rank mesh where there are two cards
+        import torch.distributed as dist
+        device = MH.init_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+        mesh = MH.global_mesh(device=device)
+        inits = {
+            "ref_init": lambda: init_from_points(xyz, rgb, device="cuda"),
+            "knn_init": lambda: init_from_points(
+                xyz, rgb, scale_init=None, opacity=0.9, device="cuda"),
+        }
+        mesh_launches = {}
+        for scene, (_, cfg) in scenes.items():
+            mesh_launches[scene], first = mesh_run(
+                torch, M, scene, inits[scene], cam, target_hwc, cfg, mesh,
+                single_step_ms[scene], card)
+            if scene == "ref_init":
+                first_ref = first
+            del first
+            torch.cuda.empty_cache()
+        mesh_trainer_run(torch, M, pool_model, small_cam,
+                         target_small.permute(1, 2, 0).cuda(), small_cfg,
+                         mesh, tmp, card)
+        dist.destroy_process_group()
+        mesh_two_ranks(torch, M, first_ref, tmp, card)
+        del first_ref
+        for row in summary["ref_init"]:
+            key = row["name"].split()[0]
+            if key in mesh_launches["ref_init"]:
+                row["mesh_launches"] = mesh_launches["ref_init"][key]
         cli_run(torch, M, tmp, card)
 
     print(card, flush=True)
@@ -1637,4 +1995,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -166,10 +166,6 @@ def cmd_info(args) -> int:
 
 
 def cmd_train(args) -> int:
-    if args.multihost:
-        raise NotImplementedError(
-            "multi-host training (parallel/) comes with a later slice of the "
-            "port")
     from intro_to_gaussian_splatting_tpu_torch.train.trainer import train_cli
     return train_cli(args)
 
@@ -294,13 +290,17 @@ def main(argv=None) -> int:
                    metavar="CKPT_DIR",
                    help="resume from a checkpoint dir (bare --resume uses "
                         "<out-dir>/ckpt); --iterations is the TOTAL budget")
-    mh = p.add_argument_group("multi-host (a later slice of the port)")
+    mh = p.add_argument_group("multi-host: one process per device")
     mh.add_argument("--multihost", action="store_true",
-                    help="train over several hosts: raises until the "
-                         "parallel/ slice")
-    mh.add_argument("--coordinator", default=None)
-    mh.add_argument("--num-processes", type=int, default=None)
-    mh.add_argument("--process-id", type=int, default=None)
+                    help="train this process's rank of a gauss x tiles "
+                         "mesh over every process (NCCL; gloo with --cpu)")
+    mh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="rank 0's address (default: MASTER_ADDR and "
+                         "MASTER_PORT from the environment)")
+    mh.add_argument("--num-processes", type=int, default=None,
+                    help="world size (default: WORLD_SIZE)")
+    mh.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (default: RANK)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="PSNR/SSIM of a trained model")

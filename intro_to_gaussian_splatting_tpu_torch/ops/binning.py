@@ -90,7 +90,11 @@ def _segment_sums(g_em: torch.Tensor, lo: torch.Tensor,
     the block totals, so a segment inside one block sees only that block's
     rounding. Both scans run along the rows of 2-D tensors, which PyTorch
     scans one row per thread block in a fixed order (its 1-D float scan on
-    the card is not run-to-run deterministic).
+    the card is not run-to-run deterministic). The block sums are taken in
+    float64: the card's scan groups a row's terms by the row's length, so
+    in float32 a segment's rounding would depend on how many blocks the
+    whole stream has (the pool's size), and the same pairs would sum
+    differently in two pools.
     """
     f, mp = g_em.shape
     b = _CUM_BLOCK
@@ -98,7 +102,7 @@ def _segment_sums(g_em: torch.Tensor, lo: torch.Tensor,
     gp = torch.nn.functional.pad(g_em, (0, (nb + 1) * b - mp))
     fine = torch.cumsum(gp.reshape(f * (nb + 1), b), dim=1).reshape(
         f, (nb + 1) * b)
-    totals = fine[:, b - 1::b]                               # (F, NB+1)
+    totals = fine[:, b - 1::b].double()                      # (F, NB+1)
     coarse = torch.cumsum(totals, dim=1) - totals            # exclusive
 
     def excl_at(idx):
@@ -108,7 +112,7 @@ def _segment_sums(g_em: torch.Tensor, lo: torch.Tensor,
         return torch.where((idx % b == 0)[None, :], 0.0, v)
 
     return ((coarse[:, hi // b] - coarse[:, lo // b])
-            + (excl_at(hi) - excl_at(lo)))
+            + (excl_at(hi) - excl_at(lo))).to(g_em.dtype)
 
 
 class _GatherPairs(torch.autograd.Function):

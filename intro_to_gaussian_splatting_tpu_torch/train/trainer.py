@@ -31,7 +31,14 @@ one card:
   * ``train_cli`` is ``gstpu-torch train``: load a COLMAP scene with its
     photos, train, and write the checkpoint, the PLY and one render.
 
-A device mesh comes with a later slice; it raises ``NotImplementedError``.
+With ``mesh`` (parallel/mesh.py) the ``Trainer`` trains over a gauss x
+tiles mesh of ranks, one per device: ``self.model`` is this rank's gauss
+shard, every step a ``parallel.sharded.sharded_train_step`` on this
+rank's strip of the target. Densify gathers the shards, runs the
+single-card densify and prune identically on every rank and re-shards;
+rank 0 writes checkpoints from the gathered state in the single-card
+format, so a mesh checkpoint also resumes on one card.
+``camera_batch`` > 1 raises under a mesh.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.relayout import (
     untile_chw_fast,
 )
 from intro_to_gaussian_splatting_tpu_torch.ops.ssim import fused_ssim
+from intro_to_gaussian_splatting_tpu_torch.parallel import multihost, sharded
 from intro_to_gaussian_splatting_tpu_torch.train import densify as D
 from intro_to_gaussian_splatting_tpu_torch.train.loss import (
     psnr_from_mse,
@@ -179,6 +187,13 @@ class Optimizer:
     def moments(state: OptState):
         """Every per-slot tensor of the state (for ``zero_slots``)."""
         return [t for g in state.values() for t in (g.mu, g.nu)]
+
+
+def _map_moments(state: OptState, fn) -> OptState:
+    """``fn`` over the per-slot moments of every group; the step counts
+    are the same for every slot and stay."""
+    return {name: dataclasses.replace(g, mu=fn(g.mu), nu=fn(g.nu))
+            for name, g in state.items()}
 
 
 def make_optimizer(config: TrainConfig, scene_extent: float) -> Optimizer:
@@ -319,7 +334,9 @@ class Trainer:
     tcfg: TrainConfig = TrainConfig()
     log_every: int = 50
     on_log: Optional[Callable] = None
-    mesh: Optional[object] = None     # multi-card training: a later slice
+    # a parallel.mesh.Mesh: train this rank's shard over the mesh
+    mesh: Optional[object] = None
+    ring: bool = True                 # the mesh's record routing
     # with tcfg.checkpoint_every > 0, the full state (model, optimizer,
     # step) is saved here every that many steps; resume() restores it
     checkpoint_dir: Optional[str] = None
@@ -330,9 +347,7 @@ class Trainer:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh (parallel/) comes with a later "
-                "slice of the port")
+            self._setup_sharded()
         self.device = self.model.device
         self.tx = make_optimizer(self.tcfg, self.scene_extent)
         self.opt_state = self.tx.init(
@@ -352,6 +367,49 @@ class Trainer:
         self._overflow_count = torch.zeros((), dtype=torch.int32,
                                            device=self.device)
         self._overflow_seen = 0
+
+    # ---- mesh plumbing -------------------------------------------------
+    def _setup_sharded(self):
+        if self.tcfg.camera_batch > 1:
+            raise ValueError(
+                "camera_batch > 1 is not supported over a device mesh: "
+                "train one camera per step (camera_batch=1)")
+        self.model = sharded.shard_model(self.model, self.mesh)
+        self.cameras = [sharded.camera_on(c, self.mesh.device)
+                        for c in self.cameras]
+
+    def gathered_model(self) -> GaussianModel:
+        """The whole model: gathered from every rank's shard under a mesh
+        (every rank must call it), ``self.model`` otherwise."""
+        if self.mesh is None:
+            return self.model
+        return multihost.gather_model(self.model, self.mesh)
+
+    def _gathered_state(self):
+        """(whole model, whole optimizer state) from every rank's shard."""
+        return self.gathered_model(), _map_moments(
+            self.opt_state, lambda t: multihost.gather_rows(t, self.mesh))
+
+    def _take_shards(self, model: GaussianModel, opt_state: OptState):
+        """This rank's shard of a whole model and optimizer state."""
+        self.model = sharded.shard_model(model, self.mesh)
+        self.opt_state = _map_moments(
+            opt_state, lambda t: sharded.shard_rows(t, self.mesh).clone())
+
+    def _sharded_target_for(self, cam_idx: int) -> torch.Tensor:
+        """This rank's (strip_rows, W, 3) rows of a camera's target, zero
+        past the image, LRU-cached on the device. Only those rows are
+        copied to the device."""
+        entry = self._cache_get(cam_idx)
+        if entry is None:
+            cam = self.cameras[cam_idx]
+            row0, rows = multihost.process_local_rows(
+                cam.height, self.rcfg.tile_size, self.mesh)
+            local = torch.as_tensor(self.targets[cam_idx][row0:row0 + rows],
+                                    dtype=torch.float32)
+            entry = sharded.pad_rows(local.to(self.device), rows).contiguous()
+            self._cache_put(cam_idx, entry, self._nbytes((entry,)))
+        return entry
 
     # ---- bounded target cache ------------------------------------------
     def _cache_get(self, cam_idx: int):
@@ -443,6 +501,31 @@ class Trainer:
         return min(self.model.sh_degree,
                    self.step // self.tcfg.sh_degree_interval)
 
+    def _train_unit(self, unit: int) -> dict:
+        """One optimization step on camera ``unit`` (camera group ``unit``
+        with ``camera_batch`` > 1); returns its metrics."""
+        if self.mesh is not None:
+            self.model, self.opt_state, self.dstate, metrics = \
+                sharded.sharded_train_step(
+                    self.model, self.opt_state, self.dstate,
+                    self.cameras[unit], self._sharded_target_for(unit),
+                    self.mesh, self.rcfg, self.tcfg, self.tx,
+                    self.active_sh_degree, ring=self.ring)
+            return metrics
+        bsz = self.tcfg.camera_batch
+        if bsz > 1:
+            n_cams = len(self.cameras)
+            group = tuple((unit * bsz + k) % n_cams for k in range(bsz))
+            camera, tt, tm, ti = self._batched_target_for(group)
+            step = train_step_batched
+        else:
+            tt, tm, ti = self._target_for(unit)
+            step, camera = train_step, self.cameras[unit]
+        self.model, self.opt_state, self.dstate, metrics = step(
+            self.model, self.opt_state, self.dstate, camera, tt, tm, ti,
+            self.rcfg, self.tcfg, self.tx, self.active_sh_degree)
+        return metrics
+
     def run(self, iterations: Optional[int] = None):
         iterations = iterations or self.tcfg.iterations
         bsz = self.tcfg.camera_batch
@@ -452,17 +535,7 @@ class Trainer:
             np.arange(iterations) % n_units)
         t0 = time.time()
         for it in range(iterations):
-            unit = int(order[it])
-            if bsz > 1:
-                group = tuple((unit * bsz + k) % n_cams for k in range(bsz))
-                cams, tt, tm, ti = self._batched_target_for(group)
-                step, camera = train_step_batched, cams
-            else:
-                tt, tm, ti = self._target_for(unit)
-                step, camera = train_step, self.cameras[unit]
-            self.model, self.opt_state, self.dstate, metrics = step(
-                self.model, self.opt_state, self.dstate, camera, tt, tm, ti,
-                self.rcfg, self.tcfg, self.tx, self.active_sh_degree)
+            metrics = self._train_unit(int(order[it]))
             self.step += 1
             self._overflow_count += metrics["overflowed"].to(torch.int32)
             self._maybe_densify()
@@ -500,14 +573,33 @@ class Trainer:
         if not (every and self.checkpoint_dir and self.step % every == 0):
             return
         from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
-            prune_checkpoints, save_checkpoint,
+            prune_checkpoints,
         )
-        save_checkpoint(self.checkpoint_dir, self.model, self.opt_state,
-                        self.step)
-        prune_checkpoints(self.checkpoint_dir, self.tcfg.checkpoint_keep)
+        self.save_checkpoint(self.checkpoint_dir)
+        if self._is_coordinator:
+            prune_checkpoints(self.checkpoint_dir, self.tcfg.checkpoint_keep)
         if self.on_log:
             self.on_log(dict(step=self.step, event="checkpoint_saved",
                              dir=self.checkpoint_dir))
+
+    @property
+    def _is_coordinator(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save_checkpoint(self, path: str) -> None:
+        """Save the full state at this step under ``path``. Under a mesh
+        every rank must call it: the state is gathered, rank 0 writes the
+        single-card format, and all ranks wait for the write."""
+        from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
+            save_checkpoint,
+        )
+        if self.mesh is None:
+            save_checkpoint(path, self.model, self.opt_state, self.step)
+            return
+        model, opt_state = self._gathered_state()
+        if self._is_coordinator:
+            save_checkpoint(path, model, opt_state, self.step)
+        multihost.barrier()
 
     def resume(self, path: Optional[str] = None,
                step: Optional[int] = None) -> int:
@@ -524,8 +616,15 @@ class Trainer:
         path = path or self.checkpoint_dir
         if not path:
             raise ValueError("resume() needs a checkpoint path")
-        self.model, self.opt_state, self.step = load_checkpoint(
-            path, self.model, self.opt_state, step)
+        if self.mesh is None:
+            self.model, self.opt_state, self.step = load_checkpoint(
+                path, self.model, self.opt_state, step)
+            return self.step
+        # every rank reads the same step whole and takes its shard
+        model, opt_state = self._gathered_state()
+        model, opt_state, self.step = load_checkpoint(path, model, opt_state,
+                                                      step)
+        self._take_shards(model, opt_state)
         return self.step
 
     def _grow_pair_pool(self):
@@ -537,6 +636,34 @@ class Trainer:
             self.on_log(dict(step=self.step, event="pair_pool_grown",
                              pairs_per_gaussian=self.rcfg.pairs_per_gaussian))
 
+    def _densify_and_prune(self, model: GaussianModel,
+                           dstate: D.DensifyState) -> torch.Tensor:
+        """Densify and prune the whole ``model`` in place; returns the
+        slots written (``densify``'s)."""
+        max_new = max(model.capacity // 8, 1)
+        noise = D.split_noise(max_new, self.generator, self.device)
+        slots = D.densify(model, dstate, noise, self.tcfg, self.scene_extent,
+                          max_new)
+        D.prune(model, self.tcfg, self.scene_extent)
+        return slots
+
+    def _densify_on_mesh(self):
+        """Gather the shards and densify statistics, densify and prune the
+        whole model identically on every rank (the same seed and device
+        type give the same noise and the same bits), take this rank's shard
+        again and zero the moments of its new slots."""
+        model = self.gathered_model()
+        dstate = D.DensifyState(
+            grad_accum=multihost.gather_rows(self.dstate.grad_accum,
+                                             self.mesh),
+            count=multihost.gather_rows(self.dstate.count, self.mesh))
+        slots = self._densify_and_prune(model, dstate)
+        self.model = sharded.shard_model(model, self.mesh)
+        cap = self.model.capacity
+        local = slots - self.mesh.g_idx * cap
+        local = torch.where((local >= 0) & (local < cap), local, cap)
+        D.zero_slots(Optimizer.moments(self.opt_state), local, cap)
+
     def _maybe_densify(self):
         t = self.tcfg
         if (t.densify_start <= self.step <= t.densify_stop
@@ -547,14 +674,14 @@ class Trainer:
             if total > self._overflow_seen:
                 self._overflow_seen = total
                 self._grow_pair_pool()
-            cap = self.model.capacity
-            max_new = max(cap // 8, 1)
-            noise = D.split_noise(max_new, self.generator, self.device)
-            slots = D.densify(self.model, self.dstate, noise, t,
-                              self.scene_extent, max_new)
-            D.prune(self.model, t, self.scene_extent)
-            D.zero_slots(Optimizer.moments(self.opt_state), slots, cap)
-            self.dstate = D.DensifyState.zero(cap, self.device)
+            if self.mesh is None:
+                slots = self._densify_and_prune(self.model, self.dstate)
+                D.zero_slots(Optimizer.moments(self.opt_state), slots,
+                             self.model.capacity)
+            else:
+                self._densify_on_mesh()
+            self.dstate = D.DensifyState.zero(self.model.capacity,
+                                              self.device)
         if (t.opacity_reset_interval and self.step > 0
                 and self.step % t.opacity_reset_interval == 0):
             D.reset_opacity(self.model)
@@ -576,19 +703,43 @@ def train_cli(args) -> int:
     subcommand of ``cli.py``) on the card, or on the CPU with ``--cpu``.
     Writes ``<out-dir>/ckpt/step_<N>``, ``point_cloud.ply``, ``render.ppm``
     and ``metrics.jsonl``; ``--iterations`` is the total budget, also when
-    resuming."""
-    from intro_to_gaussian_splatting_tpu_torch.cli import write_ppm
+    resuming.
+
+    With ``--multihost`` this process is one rank of a gauss x tiles mesh
+    over every process (NCCL on the card, gloo with ``--cpu``): the
+    capacity is rounded up to a multiple of the gauss axis, and only rank
+    0 prints the log and writes the files, from the gathered model."""
+    import torch.distributed as dist
+
     from intro_to_gaussian_splatting_tpu_torch.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    if not args.multihost:
+        return _train_cli(args, device, None)
+    owned = not dist.is_initialized()
+    device = multihost.init_multihost(args.coordinator, args.num_processes,
+                                      args.process_id, device)
+    try:
+        mesh = multihost.global_mesh(device=device)
+        print(f"multihost: rank {mesh.rank} of {mesh.size}, mesh "
+              f"{mesh.shape}, device={device}")
+        return _train_cli(args, device, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train_cli(args, device, mesh) -> int:
+    from intro_to_gaussian_splatting_tpu_torch.cli import write_ppm
     from intro_to_gaussian_splatting_tpu_torch.io.dataset import load_scene
     from intro_to_gaussian_splatting_tpu_torch.models import init_from_points
     from intro_to_gaussian_splatting_tpu_torch.ops.rasterize import (
         render_tiled,
     )
     from intro_to_gaussian_splatting_tpu_torch.train.checkpoint import (
-        export_ply, save_checkpoint,
+        export_ply,
     )
 
-    device = resolve_device("cpu" if args.cpu else None)
     scene = load_scene(args.scene, downscale=args.downscale,
                        min_track=args.min_track, device=device)
     if not scene.targets:
@@ -607,19 +758,24 @@ def train_cli(args) -> int:
         tcfg = dataclasses.replace(tcfg,
                                    checkpoint_every=args.checkpoint_every)
 
+    capacity = int(len(points) * tcfg.capacity_multiplier)
+    if mesh is not None:
+        capacity = -(-capacity // mesh.n_gauss) * mesh.n_gauss
     model = init_from_points(
         points.xyz, points.rgb, sh_degree=tcfg.sh_degree, color_space="sh",
-        capacity=int(len(points) * tcfg.capacity_multiplier), opacity=0.1,
-        scale_init=None, device=device)
-    print(f"training {len(cams)} views, {len(points)} points on "
-          f"device={device}")
+        capacity=capacity, opacity=0.1, scale_init=None, device=device)
+    # one rank prints and writes for the mesh
+    coordinator = mesh is None or mesh.rank == 0
+    say = print if coordinator else (lambda *a, **k: None)
+    say(f"training {len(cams)} views, {len(points)} points on "
+        f"device={device}")
 
     def log(m):
         if "event" in m:
-            print(f"step {m['step']}: {m['event']} ({m})")
+            say(f"step {m['step']}: {m['event']} ({m})")
             return
-        print(f"step {m['step']}: loss {m['loss']:.4f} "
-              f"psnr {m['psnr']:.2f} active {int(m['num_active'])}")
+        say(f"step {m['step']}: loss {m['loss']:.4f} "
+            f"psnr {m['psnr']:.2f} active {int(m['num_active'])}")
 
     os.makedirs(args.out_dir, exist_ok=True)
     ckpt_dir = os.path.join(args.out_dir, "ckpt")
@@ -627,22 +783,26 @@ def train_cli(args) -> int:
                       scene_extent=scene_extent_of(points.xyz), tcfg=tcfg,
                       on_log=log,
                       log_every=max(1, min(50, args.iterations // 6)),
-                      checkpoint_dir=ckpt_dir,
-                      jsonl_path=os.path.join(args.out_dir, "metrics.jsonl"))
+                      mesh=mesh, checkpoint_dir=ckpt_dir,
+                      jsonl_path=(os.path.join(args.out_dir, "metrics.jsonl")
+                                  if coordinator else None))
     iterations = args.iterations
     if args.resume:
         restored = trainer.resume(
             ckpt_dir if args.resume == "auto" else args.resume)
         iterations = max(0, args.iterations - restored)
-        print(f"resumed from step {restored} "
-              f"({iterations} iterations remaining)")
+        say(f"resumed from step {restored} "
+            f"({iterations} iterations remaining)")
     if iterations:
         trainer.run(iterations)
 
-    save_checkpoint(ckpt_dir, trainer.model, trainer.opt_state, trainer.step)
-    export_ply(os.path.join(args.out_dir, "point_cloud.ply"), trainer.model)
+    trainer.save_checkpoint(ckpt_dir)
+    final = trainer.gathered_model()
+    if not coordinator:
+        return 0
+    export_ply(os.path.join(args.out_dir, "point_cloud.ply"), final)
     with torch.no_grad():
-        img = render_tiled(trainer.model, cams[0], trainer.rcfg,
+        img = render_tiled(final, cams[0], trainer.rcfg,
                            active_sh_degree=trainer.active_sh_degree)
     write_ppm(os.path.join(args.out_dir, "render.ppm"), img.cpu().numpy())
     print(f"saved checkpoint + ply + render to {args.out_dir}")
@@ -653,7 +813,7 @@ def train_cli(args) -> int:
         )
         es = holdout_scene if holdout_scene.cameras else train_scene
         tag = "holdout" if holdout_scene.cameras else "train"
-        rows = evaluate(trainer.model, es.cameras, es.targets, trainer.rcfg,
+        rows = evaluate(final, es.cameras, es.targets, trainer.rcfg,
                         active_sh_degree=trainer.active_sh_degree,
                         names=es.names)
         for r in rows:

@@ -7,7 +7,7 @@ keypoint comparison, bench; train (the loss and PSNR improve, the
 checkpoint, PLY, render and metrics appear, the end-of-run holdout
 evaluation prints) -> eval on the PLY -> resume to a larger budget (the
 step count continues) -> a resume with nothing left -> eval with saved
-renders; ``--multihost`` raising until its slice; fetch with an injected
+renders; ``train --multihost`` over a world of one rank; fetch with an injected
 transport (extract, unknown dataset, the offline error). No network is
 touched.
 """
@@ -108,10 +108,26 @@ def test_train_eval_resume_save_renders(scene_dir, tmp_path, capsys):
                                            "im_0003.ppm"]
 
 
-def test_multihost_raises_until_its_slice(scene_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        cli.main(["--cpu", "train", scene_dir, "--multihost", "--out-dir",
-                  str(tmp_path)])
+def test_multihost_raises_until_its_slice(scene_dir, tmp_path, capsys):
+    """``train --multihost`` (which raised until the parallel/ slice) over
+    a world of one gloo rank: it trains, rank 0 writes the checkpoint, the
+    PLY, the render and the metrics, and the world is closed after."""
+    import torch.distributed as dist
+
+    from tests.torch_mesh_ranks import _free_port
+
+    out_dir = str(tmp_path / "mh")
+    out = _run(capsys, "train", scene_dir, "--multihost", "--coordinator",
+               f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+               "--process-id", "0", "--iterations", "6", "--out-dir",
+               out_dir)
+    assert "multihost: rank 0 of 1" in out, out
+    losses = [float(v[1]) for v in STEP.findall(out)]
+    assert len(losses) >= 2 and losses[-1] < losses[0], out
+    for name in ("point_cloud.ply", "render.ppm", "metrics.jsonl"):
+        assert os.path.exists(os.path.join(out_dir, name)), name
+    assert list_checkpoint_steps(os.path.join(out_dir, "ckpt")) == [6]
+    assert not dist.is_initialized()
 
 
 def _fake_urlopen_for(payload: bytes):

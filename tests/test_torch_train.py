@@ -12,8 +12,9 @@ with either loss, against the JAX package's at the same tolerances. Then
 the ``Trainer``'s behaviour, mirroring the JAX package's
 tests/test_training.py: the loss falls, the pair pool grows on overflow,
 the target cache stays bounded, camera groups wrap around a ragged camera
-count, a device mesh raises. Each JAX step is compiled once (``jax_fast``)
-and the parameter-free references run in one compiled program.
+count, a Trainer over a 1x1 mesh takes a step. Each JAX step is compiled
+once (``jax_fast``) and the parameter-free references run in one compiled
+program.
 """
 
 import dataclasses
@@ -520,18 +521,31 @@ def test_trainer_camera_batch_ragged_groups():
     (dict(mesh=object()), "parallel/"),
 ])
 def test_later_slices_raise(change, match):
-    """Training over a device mesh (parallel/) raises, naming its slice.
-    The batched steps and the split loss, which raised until their slices
-    landed, build a Trainer that takes a step."""
+    """Each change that raised until its slice landed (``match`` names the
+    slice) now builds a Trainer that takes a step: the batched steps, the
+    split loss and, since the parallel/ slice, a mesh (here 1x1, one gloo
+    rank in this process)."""
     cam, model = _port_scene(10, 2)
+    change = dict(change)
     mesh = change.pop("mesh", None)
     kwargs = dict(model=model, cameras=[cam], targets=[np.zeros((32, 32, 3))],
                   scene_extent=1.0, rcfg=port_config(RCFG),
-                  tcfg=PortTrainConfig(**change), mesh=mesh)
-    if mesh is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            T.Trainer(**kwargs)
-    else:
+                  tcfg=PortTrainConfig(**change))
+    if mesh is None:
         hist = T.Trainer(**kwargs).run(1)
-        assert hist[-1]["step"] == 1 and np.isfinite(hist[-1]["loss"])
+    else:
+        import torch.distributed as dist
+
+        from intro_to_gaussian_splatting_tpu_torch.parallel.multihost import (
+            global_mesh, init_multihost,
+        )
+        from tests.torch_mesh_ranks import _free_port
+        init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu")
+        try:
+            trainer = T.Trainer(**kwargs, mesh=global_mesh(device="cpu"))
+            hist = trainer.run(1)
+            assert trainer.model.capacity == 10
+        finally:
+            dist.destroy_process_group()
+    assert hist[-1]["step"] == 1 and np.isfinite(hist[-1]["loss"]), match
     assert T.scene_extent_of(np.array([[0.0, 0, 0], [2.0, 0, 0]])) == 1.0
