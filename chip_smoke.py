@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: the render path, the training
 step with the fused or the split loss, batched steps, the probe kernels,
-checkpoint / resume, evaluation, training over a device mesh and the CLI.
+checkpoint / resume, evaluation, training over a device mesh, the CLI,
+the host C++ and the training-curve run.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -57,7 +58,12 @@ JAX, and prints one JSON line per phase:
                   Mpix/s; stage times; one step under torch.profiler (its
                   kernel ms, idle share and each port kernel's ms); peak
                   memory;
-  train_knn_init  the same at the KNN init and the dense pool;
+  train_knn_init  the same at the KNN init and the dense pool; both also
+                  time one densify + prune pass (``Trainer._densify_and_
+                  prune``) after their steps, host ms between two
+                  synchronisations, on copies of the trained model: as it
+                  is (every slot active) and in a pool of twice its
+                  capacity, with the slots written;
   render_grad_*   the gradient of a ``render_tiled`` image on the card, the
                   path that launches B5-tile, counted the same way;
   train_kernels_* per scene, on the step's real inputs, B2, B3 and B5-tile
@@ -114,7 +120,25 @@ JAX, and prints one JSON line per phase:
                   a line that says it did not run, and why;
   cli_small       ``cli.main`` in-process on a small synthetic scene: info,
                   train, train --resume, eval, points, bench and train
-                  --multihost in a world of one rank, on the card.
+                  --multihost in a world of one rank, on the card;
+  native          the port's host C++ (utils/native.py), built with g++:
+                  the scalar CPU oracle on the small scene's depth-sorted
+                  records (projected on the card, moved to the host)
+                  against the card's ``render_tiled`` (B1) and
+                  ``render_dense`` (rtol 1e-4, atol 1e-5); the native
+                  COLMAP readers equal to the Python readers on a
+                  4,000-point model; host ms of each;
+  train_curve     the port's training-curve script
+                  (scripts/train_curve.py) in this process, at its
+                  defaults (600 steps at 1392x928, 12,000 of 60,000
+                  gaussians, densify every 100 steps): targets rendered on
+                  the card, then the run with the launch counts set to 0
+                  just before and read just after; every logged loss and
+                  PSNR finite, PSNR climbing by more than 1 dB, B1, B2
+                  and B3 exactly once per step, ``num_active`` moving at a
+                  densify step; wall s, steps/s, PSNR first / best /
+                  final, each pool growth and densify pass, peak memory
+                  and the curve.
 
 Every phase line carries ``phase_seconds``, the seconds since the line
 before it.
@@ -194,6 +218,9 @@ PORT_KERNELS = {
 # Record rows B1 reads per pair: mean, conic, opacity and the 5 payload
 # rows; 4 more with the pixel-bbox test
 B1_ROWS, B1_BBOX_ROWS = 11, 15
+
+# Steps of the train_curve phase: the port's script at its defaults.
+TRAIN_CURVE_STEPS = 600
 
 P1_REPLACES = "scripts/probe_kernel.py:31"
 P2_REPLACES = "scripts/probe_kernel.py:55"
@@ -500,7 +527,9 @@ def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
         sums, state["opt"], state["densify"] = train_stage_times(
             torch, M, model, cam, target, cfg, tcfg, state["tx"],
             state["opt"], state["densify"])
-        return dict(stages_host_ms=sums)
+        return dict(stages_host_ms=sums,
+                    densify_pass=densify_pass(torch, M, model,
+                                              state["densify"], cam))
 
     launches, step_ms = run_steps(
         torch, M, f"train_{scene}", step, model,
@@ -508,6 +537,63 @@ def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
         cam.width * cam.height / 1e6, card, after=stages)
     return ({"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]},
             step_ms)
+
+
+def densify_pass(torch, M, model, dstate, cam) -> dict:
+    """One densify + prune pass (``Trainer._densify_and_prune``, the
+    Trainer's noise and the steps' scene extent 10) after the steps, host
+    ms between two synchronisations, on copies of the trained model and its
+    densify statistics: as it is (every slot active, so no slot is written)
+    and in a pool of twice its capacity, the free half inactive, as a
+    Trainer's pool holds it; there also with a gradient threshold of 0,
+    every active gaussian a candidate, so that the pass writes its most
+    slots (a capacity / 8). The model itself stays as it is for the later
+    phases."""
+    n = model.capacity
+    out = {}
+    for label, cap, threshold in (
+            ("full_pool", n, M.TrainConfig().densify_grad_threshold),
+            ("pool_x2", 2 * n, M.TrainConfig().densify_grad_threshold),
+            ("pool_x2_threshold_0", 2 * n, 0.0)):
+        with torch.no_grad():
+            pad = cap - n
+            params = {name: getattr(model, name).detach() for name in
+                      M.PARAM_NAMES}
+            free = dict(
+                means=torch.zeros_like(params["means"][:pad]),
+                log_scales=torch.full_like(params["log_scales"][:pad],
+                                           math.log(1e-3)),
+                quats=params["quats"].new_tensor([1.0, 0.0, 0.0, 0.0])
+                .expand(pad, 4),
+                opacity_logits=torch.full_like(
+                    params["opacity_logits"][:pad], -20.0),
+                sh=torch.zeros_like(params["sh"][:pad]))
+            pool = M.GaussianModel(
+                **{name: torch.cat([params[name], free[name]])
+                   for name in M.PARAM_NAMES},
+                active=torch.cat([model.active, torch.zeros(
+                    pad, dtype=torch.bool, device="cuda")]),
+                color_space=model.color_space)
+            stats = M.D.DensifyState(
+                grad_accum=torch.cat([dstate.grad_accum, torch.zeros(
+                    pad, device="cuda")]),
+                count=torch.cat([dstate.count, torch.zeros(
+                    pad, dtype=torch.int32, device="cuda")]))
+        trainer = M.T.Trainer(
+            model=pool, cameras=[cam], targets=[None], scene_extent=10.0,
+            tcfg=M.TrainConfig(densify_grad_threshold=threshold))
+        torch.cuda.synchronize()
+        before = int(pool.active.sum())
+        t0 = time.perf_counter()
+        slots = trainer._densify_and_prune(pool, stats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[label] = dict(capacity=cap, grad_threshold=threshold, host_ms=ms,
+                          slots_written=int((slots < cap).sum()),
+                          active_before=before,
+                          active_after=int(pool.active.sum()))
+        del trainer, pool, stats, slots
+    return out
 
 
 def render_grad_run(torch, M, scene, model, cam, target_hwc, cfg, card):
@@ -1437,6 +1523,149 @@ def cli_run(torch, M, tmp, card):
           f"cli_small: train --multihost: {results['train_multihost']}")
 
 
+def native_run(torch, np, M, model, cam, cfg, tmp, card):
+    """The port's host C++ (utils/native.py), built with g++ on the card's
+    machine: the scalar CPU oracle on the small scene's depth-sorted
+    records, projected on the card and moved to the host, against the
+    card's ``render_tiled`` (B1, B5-untile; launches counted from 0) and
+    ``render_dense`` on the card (rtol 1e-4, atol 1e-5); the native COLMAP
+    readers against the Python readers on a 4,000-point synthetic model,
+    every array equal in value and dtype. Times are host ms."""
+    t0 = time.perf_counter()
+    check(M.N.oracle_available() and M.N.colmap_available(),
+          "native: no C++ compiler on PATH")
+    build_s = time.perf_counter() - t0
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    with torch.no_grad():
+        tiled = M.R.render_tiled(model, cam, cfg).cpu().numpy()
+        launches = {k.symbol: k.launches for k in M.ALL_KERNELS
+                    if k.launches}
+        dense = M.render_dense(model, cam, cfg).cpu().numpy()
+        proj = M.project_gaussians(model, cam, cfg)
+        rec, order = M.sorted_records(proj)
+        rec, valid = rec.cpu().numpy(), proj.valid[order].cpu().numpy()
+    t0 = time.perf_counter()
+    oracle = M.N.oracle_render(rec, valid, cam.width, cam.height, cfg)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    tol = dict(rtol=1e-4, atol=1e-5)
+
+    sparse = M.make_colmap_scene(os.path.join(tmp, "colmap"),
+                                 num_points=4000, num_cameras=8, seed=2,
+                                 device="cuda")
+    files = {stem: os.path.join(sparse, f"{stem}.bin")
+             for stem in ("points3D", "images")}
+    readers = {"points3D": M.CM.read_points3D_binary,
+               "images": M.CM.read_images_binary}
+
+    def read_all(times):
+        got = {}
+        for stem, read in readers.items():
+            t0 = time.perf_counter()
+            got[stem] = read(files[stem])
+            times[stem].append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    # five reads of each file by each reader, in turns; medians
+    native_ms, python_ms = ({stem: [] for stem in readers} for _ in range(2))
+    available = M.N.colmap_available
+    for _ in range(5):
+        native = read_all(native_ms)
+        M.N.colmap_available = lambda: False      # the Python parsers
+        try:
+            python = read_all(python_ms)
+        finally:
+            M.N.colmap_available = available
+    native_ms, python_ms = ({stem: sorted(v)[2] for stem, v in t.items()}
+                            for t in (native_ms, python_ms))
+
+    def fields(x):
+        return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
+
+    def same(a, b):
+        a, b = fields(a), fields(b)
+        return a.keys() == b.keys() and all(
+            (isinstance(b[k], np.ndarray) and a[k].dtype == b[k].dtype
+             and np.array_equal(a[k], b[k]))
+            or (not isinstance(b[k], np.ndarray) and a[k] == b[k])
+            for k in b)
+
+    readers_equal = dict(
+        points3D=same(native["points3D"], python["points3D"]),
+        images=(list(native["images"]) == list(python["images"])
+                and all(same(native["images"][i], python["images"][i])
+                        for i in python["images"])))
+    emit("native", build_s=build_s,
+         oracle=dict(gaussians=model.capacity, width=cam.width,
+                     height=cam.height, host_ms=oracle_ms,
+                     max_abs_vs_render_tiled=float(np.abs(oracle
+                                                          - tiled).max()),
+                     max_abs_vs_render_dense=float(np.abs(oracle
+                                                          - dense).max()),
+                     render_tiled_launches=launches,
+                     tolerance="rtol 1e-4, atol 1e-5"),
+         colmap=dict(points=len(python["points3D"]),
+                     images=len(python["images"]),
+                     observations=int(python["points3D"].track_lengths.sum()),
+                     native_host_ms_median=native_ms,
+                     python_host_ms_median=python_ms,
+                     equal=readers_equal),
+         card=card)
+    check(np.allclose(oracle, tiled, **tol),
+          "native: the oracle disagrees with the card's render_tiled")
+    check(np.allclose(oracle, dense, **tol),
+          "native: the oracle disagrees with render_dense on the card")
+    check(launches.get("rasterize_fwd", 0) >= 1,
+          f"native: render_tiled did not launch B1: {launches}")
+    check(all(readers_equal.values()),
+          f"native: the native COLMAP readers differ: {readers_equal}")
+
+
+def train_curve_run(torch, M, tmp, card, steps):
+    """The port's training-curve script in this process, at its defaults
+    but ``--steps``, on the card (scripts/train_curve.py): the targets
+    rendered on the card (B1 and B5-untile once per camera), then the
+    Trainer's run with every launch count set to 0 just before and read
+    just after. Gates: every logged loss and PSNR finite, PSNR climbing by
+    more than 1 dB, B1, B2 and B3 launched exactly once per step, and
+    ``num_active`` moving at a densify step."""
+    args = M.TC.parse_args(["--steps", str(steps), "--out",
+                            os.path.join(tmp, "train_curve.jsonl")])
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    problem = M.TC.make_problem(args)
+    torch.cuda.synchronize()
+    problem_s = time.perf_counter() - t0
+    target_launches = {k.symbol: k.launches for k in M.ALL_KERNELS
+                       if k.launches}
+    for k in M.ALL_KERNELS:
+        k.launches = 0
+    summary = M.TC.run_problem(problem)
+    launches = {k.symbol: k.launches for k in M.ALL_KERNELS if k.launches}
+    with open(args.out) as f:
+        rows = [json.loads(line) for line in f][:-1]
+    emit("train_curve", problem_seconds=problem_s,
+         target_launches=target_launches, launches_in_run=launches,
+         summary=summary, card=card)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["psnr"])
+              for r in rows) and len(rows) == len(summary["curve"]),
+          "train_curve: a logged loss or PSNR is not finite")
+    check(summary["final_psnr"] > summary["first_psnr"] + 1.0,
+          f"train_curve: PSNR did not climb by more than 1 dB "
+          f"({summary['first_psnr']} -> {summary['final_psnr']})")
+    check(all(launches.get(k) == steps for k in
+              ("rasterize_fwd", "rasterize_bwd", "fused_loss")),
+          f"train_curve: not one B1, B2 and B3 per step: {launches}")
+    check(target_launches.get("rasterize_fwd") == args.cameras
+          and target_launches.get("untile_chw") == args.cameras,
+          f"train_curve: target renders launched {target_launches}")
+    check(any(p["active_after"] != p["active_before"]
+              for p in summary["densify_passes"]),
+          f"train_curve: densify never moved num_active: "
+          f"{summary['densify_passes']}")
+
+
 def main() -> int:
     import torch
 
@@ -1468,20 +1697,26 @@ def main() -> int:
     from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as R
     from intro_to_gaussian_splatting_tpu_torch.ops import relayout as L
     from intro_to_gaussian_splatting_tpu_torch.ops import ssim as S
+    from intro_to_gaussian_splatting_tpu_torch.io import colmap as CM
+    from intro_to_gaussian_splatting_tpu_torch.io.synthetic import (
+        make_colmap_scene,
+    )
     from intro_to_gaussian_splatting_tpu_torch.scripts import (
         probe_kernel as PK,
+        train_curve as TC,
     )
     from intro_to_gaussian_splatting_tpu_torch.train import checkpoint as C
     from intro_to_gaussian_splatting_tpu_torch.train import densify as D
     from intro_to_gaussian_splatting_tpu_torch.train import evaluate as E
     from intro_to_gaussian_splatting_tpu_torch.train import loss as LS
     from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
+    from intro_to_gaussian_splatting_tpu_torch.utils import native as N
     from intro_to_gaussian_splatting_tpu_torch.utils import profiling as U
     from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
         bin_gaussians, num_groups_for, tile_grid,
     )
     from intro_to_gaussian_splatting_tpu_torch.ops.compositing import (
-        render_dense,
+        render_dense, sorted_records,
     )
     from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
         GRAD_ROWS, project_gaussians,
@@ -1495,7 +1730,9 @@ def main() -> int:
 
     M = types.SimpleNamespace(
         R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E, LS=LS,
-        SP=SP, cuda_build=cuda_build,
+        SP=SP, N=N, TC=TC, CM=CM, cuda_build=cuda_build,
+        GaussianModel=GaussianModel, render_dense=render_dense,
+        sorted_records=sorted_records, make_colmap_scene=make_colmap_scene,
         TrainConfig=TrainConfig, RasterizerConfig=RasterizerConfig,
         PARAM_NAMES=PARAM_NAMES, tile_grid=tile_grid,
         num_groups_for=num_groups_for, bin_gaussians=bin_gaussians,
@@ -1984,6 +2221,11 @@ def main() -> int:
             if key in mesh_launches["ref_init"]:
                 row["mesh_launches"] = mesh_launches["ref_init"][key]
         cli_run(torch, M, tmp, card)
+
+        # -- the host C++ on the card's machine, then the training curve
+        native_run(torch, np, M, small_model("cuda"), small_cam, small_cfg,
+                   tmp, card)
+        train_curve_run(torch, M, tmp, card, TRAIN_CURVE_STEPS)
 
     print(card, flush=True)
     print(json.dumps({"kernels": summary["ref_init"] + b4_rows + p_rows}),

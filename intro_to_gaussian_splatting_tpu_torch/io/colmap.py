@@ -4,8 +4,11 @@ The port's own copy of the JAX package's readers and writers. The on-disk
 formats are fixed by COLMAP itself
 (colmap/src/colmap/scene/reconstruction.cc). The whole file is read once
 and fixed-size records are decoded with ``np.frombuffer`` views, with one
-thin Python loop over the variable-length image/point records. The output
-is struct-of-arrays.
+thin Python loop over the variable-length image/point records. Where a C++
+compiler is available, ``images.bin`` and ``points3D.bin`` go through the
+native reader (``utils/native.py``, ``csrc/colmap_reader.cpp``) instead,
+as in the JAX package; a corrupt file then raises ``ValueError``. The
+output is struct-of-arrays.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import struct
 from typing import Dict, Tuple
 
 import numpy as np
+
+from intro_to_gaussian_splatting_tpu_torch.utils import native
 
 # model_id -> (name, num_params); fixed by COLMAP (ref: splat/read_colmap.py:21-33)
 CAMERA_MODELS = {
@@ -137,6 +142,8 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
     """images.bin: u64 count, then per image: i32 id, 4xf64 qvec, 3xf64 tvec,
     i32 camera_id, NUL-terminated name, u64 npts, npts x (f64 x, f64 y, i64 id)
     (ref: splat/read_colmap.py:200-238)."""
+    if native.colmap_available():
+        return _images_from_native(native.read_images_native(path))
     images: Dict[int, ColmapImage] = {}
     with open(path, "rb") as f:
         buf = f.read()
@@ -165,10 +172,33 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
     return images
 
 
+def _images_from_native(d) -> Dict[int, ColmapImage]:
+    images: Dict[int, ColmapImage] = {}
+    off_pts = 0
+    off_name = 0
+    for i in range(len(d["ids"])):
+        nl = int(d["name_lengths"][i])
+        np_ = int(d["pt_counts"][i])
+        images[int(d["ids"][i])] = ColmapImage(
+            id=int(d["ids"][i]),
+            qvec=d["qvec"][i],
+            tvec=d["tvec"][i],
+            camera_id=int(d["camera_ids"][i]),
+            name=d["names"][off_name:off_name + nl].decode("utf-8"),
+            xys=d["xys"][off_pts:off_pts + np_],
+            point3D_ids=d["point3d_ids"][off_pts:off_pts + np_],
+        )
+        off_pts += np_
+        off_name += nl
+    return images
+
+
 def read_points3D_binary(path: str) -> ColmapPoints:
     """points3D.bin: u64 count, then per point: u64 id, 3xf64 xyz, 3xu8 rgb,
     f64 error (43 bytes), u64 track_len, track_len x (i32 image_id, i32 p2d)
     (ref: splat/read_colmap.py:284-300)."""
+    if native.colmap_available():
+        return ColmapPoints(**native.read_points3d_native(path))
     with open(path, "rb") as f:
         buf = f.read()
     (num,) = struct.unpack_from("<Q", buf, 0)

@@ -12,7 +12,9 @@ chunks of gaussians in log space, as in the JAX package:
 
 ``include`` is the reference's early exit: with alpha <= alpha_clamp < 1, T
 is monotone, so the first gaussian that would push T under the threshold
-ends the pixel for good.
+ends the pixel for good. ``exact_break=True`` is the reference Python
+renderer's break instead: tested on the unclamped alpha, and permanent
+even where the unclamped alpha breaks monotonicity.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
 
 # Floor on log1p(-alpha): e^-30 ~ 1e-13 is far below every T threshold.
 _LOG_FLOOR = -30.0
-# Gaussians composited per step: memory is O(pixels * _CHUNK).
-_CHUNK = 256
 
 
 def prefix_sum_incl(x: torch.Tensor) -> torch.Tensor:
@@ -90,24 +90,37 @@ def tile_overlap_mask(px, py, rec, config: RasterizerConfig):
     return x_ov & y_ov
 
 
+def sorted_records(proj: P.ProjectedGaussians):
+    """(records, order): the (16, N) record matrix depth-sorted front to
+    back, invalid slots last, and the sort's permutation (ref: a global
+    ascending argsort on camera z, gaussian_scene.py:117-129)."""
+    key = torch.where(proj.valid, proj.depth, float("inf"))
+    order = torch.argsort(key, stable=True)
+    return pack_records(proj)[:, order], order
+
+
 def render_dense(
     model: GaussianModel,
     camera: Camera,
     config: RasterizerConfig = RasterizerConfig(),
+    tile_culling: bool = True,
+    exact_break: bool = False,
+    chunk: int = 256,
     active_sh_degree: Optional[int] = None,
     return_aux: bool = False,
 ):
     """Render (height, width, 3) by compositing all gaussians per pixel,
-    each pixel against the gaussians whose bbox overlaps its tile (the
-    binning of the tiled backends).
+    ``chunk`` gaussians at a time (memory is O(pixels * chunk)). With
+    ``tile_culling`` each pixel sees only the gaussians whose bbox overlaps
+    its tile (the binning of the tiled backends); without, every valid
+    gaussian. ``exact_break`` takes the reference Python renderer's
+    permanent break on the unclamped alpha (module docstring).
 
     With ``return_aux=True`` also returns alpha, depth and the EXACT final
     transmittance prod(1 - alpha_i) over all gaussians.
     """
     proj = project_gaussians(model, camera, config, active_sh_degree)
-    key = torch.where(proj.valid, proj.depth, float("inf"))
-    order = torch.argsort(key, stable=True)
-    rec = pack_records(proj)[:, order]
+    rec, order = sorted_records(proj)
     gvalid = proj.valid[order]
     h, w = camera.height, camera.width
     dev = rec.device
@@ -117,17 +130,27 @@ def render_dense(
     py = ys.to(torch.float32)[:, None]
 
     T = torch.ones((h * w, 1), device=dev)
+    alive = torch.ones((h * w, 1), device=dev)
     accum = torch.zeros((h * w, P.NUM_PAYLOAD), device=dev)
-    for lo in range(0, rec.shape[1], _CHUNK):
-        rec_c = rec[:, lo:lo + _CHUNK]
-        gmask = (gvalid[None, lo:lo + _CHUNK]
-                 & tile_overlap_mask(px, py, rec_c, config))
+    for lo in range(0, rec.shape[1], chunk):
+        rec_c = rec[:, lo:lo + chunk]
+        gmask = gvalid[None, lo:lo + chunk]
+        if tile_culling:
+            gmask = gmask & tile_overlap_mask(px, py, rec_c, config)
         alpha_raw = gaussian_alpha(px, py, rec_c)
         a = effective_alpha(alpha_raw, px, py, rec_c, gmask, config)
         s = torch.clamp(torch.log1p(-a), min=_LOG_FLOOR)
         s_incl = prefix_sum_incl(s)
         t = T * torch.exp(s_incl - s)
-        include = (t * (1.0 - a) >= config.t_threshold).to(torch.float32)
+        if exact_break:
+            masked_raw = torch.where(a > 0.0, alpha_raw, 0.0)
+            bad = (t * (1.0 - masked_raw) < config.t_threshold).to(
+                torch.float32)
+            done = (prefix_sum_incl(bad) > 0.0).to(torch.float32)
+            include = alive * (1.0 - done)
+            alive = alive * (1.0 - done[:, -1:])
+        else:
+            include = (t * (1.0 - a) >= config.t_threshold).to(torch.float32)
         wgt = t * a * include
         accum = accum + wgt @ rec_c[P.PAYLOAD_START:, :].T
         T = T * torch.exp(s_incl[:, -1:])

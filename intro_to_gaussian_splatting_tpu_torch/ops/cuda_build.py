@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and call them through ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host C++ with the C++
+compiler, and call them through ctypes.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface, built
 at first use into a shared library for Hopper (``sm_90a``):
@@ -6,12 +7,20 @@ at first use into a shared library for Hopper (``sm_90a``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v [per-kernel flags] -o lib<name>-<hash>.so
 
+Each host library (``HostSource``: the CPU compositing oracle, the COLMAP
+reader) is one ``csrc/<name>.cpp`` file with a plain C interface, built
+with ``$CXX`` (``g++`` by default) and the JAX package's native flags:
+
+    g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall -o lib<name>-<hash>.so
+
 No PyTorch header is compiled, so a build takes seconds. The library name
-carries a hash of the source and the flags, so an edited source is rebuilt;
-a build writes to a temporary name and renames, so concurrent processes do
-not see half-written files. ``ptxas``'s report (registers, shared memory,
-spills) is kept beside each library as ``<library>.log``; ``sass`` dumps a
-built library's machine code.
+carries a hash of the source and the flags (for a host library also of
+what ``-march=native`` means on this machine, so a checkout moved to
+another CPU rebuilds), so an edited source is rebuilt; a build writes to a
+temporary name and renames, so concurrent processes do not see
+half-written files. The compiler's report (for nvcc, ``ptxas``'s
+registers, shared memory and spills) is kept beside each library as
+``<library>.log``; ``sass`` dumps a built kernel library's machine code.
 
 The build directory is ``_build/`` inside the package, or
 ``$GSTPU_TORCH_BUILD_DIR``. Nothing here runs at import time.
@@ -26,11 +35,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's native/Makefile flags
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+              "-Wall")
 
 
 def build_dir() -> Path:
@@ -49,28 +61,75 @@ def nvcc_path() -> str:
                        "from csrc/ with the CUDA toolkit")
 
 
+def cxx_path() -> Optional[str]:
+    """The host C++ compiler, ``$CXX`` or ``g++`` on ``PATH``; None if
+    there is none."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
-    name: str                       # csrc/<name>.cu
+    name: str                       # csrc/<name><suffix>
     extra_flags: Tuple[str, ...] = ()
+
+    suffix = ".cu"
 
     @property
     def path(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.name}{self.suffix}"
+
+    def compiler(self) -> str:
+        return nvcc_path()
+
+    def flags(self) -> Tuple[str, ...]:
+        return NVCC_FLAGS + self.extra_flags
+
+    def _digest(self):
+        digest = hashlib.sha256(self.path.read_bytes())
+        digest.update(" ".join(self.flags()).encode())
+        return digest
 
     def library(self) -> Path:
-        digest = hashlib.sha256(self.path.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS + self.extra_flags).encode())
-        return build_dir() / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
+        return (build_dir()
+                / f"lib{self.name}-{self._digest().hexdigest()[:16]}.so")
 
     def command(self, out: Path) -> list:
-        return [nvcc_path(), *NVCC_FLAGS, *self.extra_flags, "-o", str(out),
+        return [self.compiler(), *self.flags(), "-o", str(out),
                 str(self.path)]
 
 
+@dataclasses.dataclass(frozen=True)
+class HostSource(KernelSource):
+    """A host library, ``csrc/<name>.cpp``, built with the C++ compiler."""
+
+    suffix = ".cpp"
+
+    def compiler(self) -> str:
+        found = cxx_path()
+        if found is None:
+            raise RuntimeError(
+                f"no C++ compiler ({os.environ.get('CXX', 'g++')}) on PATH: "
+                f"the port's host library {self.name} is built from csrc/")
+        return found
+
+    def flags(self) -> Tuple[str, ...]:
+        return HOST_FLAGS + self.extra_flags
+
+    def _digest(self):
+        # -march=native differs from CPU to CPU: hash the target macros it
+        # defines here
+        digest = super()._digest()
+        target = subprocess.run(
+            [self.compiler(), "-march=native", "-dM", "-E", "-x", "c++",
+             os.devnull], capture_output=True, text=True)
+        digest.update(target.stdout.encode())
+        return digest
+
+
 def build(sources: Sequence[KernelSource]) -> Dict[str, Path]:
-    """Build every source not built yet, one nvcc each, all at once.
-    Returns {name: library path}; raises with nvcc's output on failure."""
+    """Build every source not built yet, one compiler process each, all at
+    once. Returns {name: library path}; raises with the compiler's output
+    on failure."""
     out = {src.name: src.library() for src in sources}
     todo = [src for src in sources if not out[src.name].exists()]
     if not todo:
@@ -86,12 +145,13 @@ def build(sources: Sequence[KernelSource]) -> Dict[str, Path]:
     for src, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{src.name} ({Path(proc.args[0]).name} exit "
+                          f"{proc.returncode}):\n{log}")
             continue
         Path(str(out[src.name]) + ".log").write_text(log)
         os.replace(tmp, out[src.name])
     if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return out
 
 

@@ -143,6 +143,12 @@ def gather_model(model_shard: GaussianModel, mesh: Mesh) -> GaussianModel:
         color_space=model_shard.color_space)
 
 
+def is_coordinator() -> bool:
+    """True on rank 0, and in a process that has joined no world (JAX's
+    ``jax.process_index() == 0``, which is 0 in a single process)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def barrier() -> None:
     """Cross-rank sync point (checkpoint write ordering)."""
     if dist.is_initialized() and dist.get_world_size() > 1:
