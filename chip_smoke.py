@@ -128,6 +128,10 @@ JAX, and prints one JSON line per phase:
                   ``render_dense`` (rtol 1e-4, atol 1e-5); the native
                   COLMAP readers equal to the Python readers on a
                   4,000-point model; host ms of each;
+  native_fallback with ``CXX=false`` and an empty build directory,
+                  ``read_model`` of that model through the Python parser:
+                  one warning, nothing built, every array equal to the
+                  native read's; host ms;
   train_curve     the port's training-curve script
                   (scripts/train_curve.py) in this process, at its
                   defaults (600 steps at 1392x928, 12,000 of 60,000
@@ -165,6 +169,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -280,15 +285,16 @@ def stage_times(torch, model, cam, cfg, ntx, nty, ng, project_gaussians,
 
 def in_turns(M, kernel, library, per_turn=15):
     """A B5 kernel and its library call timed in turns (kernel, library,
-    library, kernel; ``per_turn`` calls each): the mean device durations
-    under torch.profiler and how many launches it timed, then the same
-    turns from CUDA events."""
-    (ms, n), (lib_ms, lib_n) = M.U.device_ms_in_turns(kernel, library,
-                                                      per_turn)
+    library, kernel; ``per_turn`` calls each, the round repeated while the
+    profiler has timed fewer than 20 launches of either): the mean device
+    durations under torch.profiler and how many launches it timed, then
+    the same turns from CUDA events."""
+    (ms, n), (lib_ms, lib_n), rounds = M.U.device_ms_in_turns(
+        kernel, library, per_turn, min_launches=20)
     events = ([], [])
     for i in (0, 1, 1, 0):
         events[i].append(M.U.cuda_ms((kernel, library)[i], iters=per_turn))
-    return dict(ms=ms, profiler_launches=n,
+    return dict(ms=ms, profiler_launches=n, profiler_rounds=rounds,
                 cuda_event_ms=sum(events[0]) / 2, library_ms=lib_ms,
                 library_profiler_launches=lib_n,
                 library_cuda_event_ms=sum(events[1]) / 2)
@@ -298,11 +304,15 @@ def profiled(M, fn, names, calls=24):
     """A B1-B4 kernel's time: its wrapper called ``calls`` times under
     torch.profiler, the device ms per call of the kernels whose names
     contain one of ``names`` (at least 20 launches of the first must be
-    timed), each name's share apart, and the wrapper's mean time from CUDA
-    events beside it."""
-    by_name = M.U.device_ms_per_call(fn, calls)
+    timed; a session that timed fewer is run again), each name's share
+    apart, and the wrapper's mean time from CUDA events beside it."""
+    def first_timed(by_name):
+        return sum(v[1] for n, v in by_name.items() if names[0] in n)
+
+    by_name = M.U.device_ms_per_call(
+        fn, calls, timed=lambda r: first_timed(r) >= 20)
     mine = {n: v for n, v in by_name.items() if any(k in n for k in names)}
-    timed = sum(v[1] for n, v in mine.items() if names[0] in n)
+    timed = first_timed(by_name)
     check(timed >= 20, f"{names[0]}: the profiler timed {timed} of {calls} "
                        f"launches ({sorted(by_name)})")
     return dict(ms=sum(v[0] for v in mine.values()), profiler_launches=timed,
@@ -322,6 +332,7 @@ def b5_row(times, nbytes, library_bytes, **fields):
                 gbytes_per_s=nbytes / times["ms"] / 1e6,
                 cuda_event_ms=times["cuda_event_ms"],
                 profiler_launches=times["profiler_launches"],
+                profiler_rounds=times["profiler_rounds"],
                 library_ms=times["library_ms"], library_bytes=library_bytes,
                 library_gbytes_per_s=library_bytes / times["library_ms"]
                 / 1e6,
@@ -1530,7 +1541,10 @@ def native_run(torch, np, M, model, cam, cfg, tmp, card):
     card's ``render_tiled`` (B1, B5-untile; launches counted from 0) and
     ``render_dense`` on the card (rtol 1e-4, atol 1e-5); the native COLMAP
     readers against the Python readers on a 4,000-point synthetic model,
-    every array equal in value and dtype. Times are host ms."""
+    every array equal in value and dtype; then, with ``CXX=false`` and an
+    empty build directory, ``read_model``'s fallback to the Python parser:
+    one warning, nothing built, the native read's arrays. Times are host
+    ms."""
     t0 = time.perf_counter()
     check(M.N.oracle_available() and M.N.colmap_available(),
           "native: no C++ compiler on PATH")
@@ -1619,6 +1633,53 @@ def native_run(torch, np, M, model, cam, cfg, tmp, card):
           f"native: render_tiled did not launch B1: {launches}")
     check(all(readers_equal.values()),
           f"native: the native COLMAP readers differ: {readers_equal}")
+
+    native_fallback_run(M, sparse, native, same, tmp, card)
+
+
+def native_fallback_run(M, sparse, native, same, tmp, card):
+    """A C++ build that fails (``CXX=false``, an empty build directory):
+    ``read_model`` falls back to the Python parser with one warning, builds
+    nothing, and reads ``native``, the native reader's read of ``sparse``;
+    ``same`` compares two reads. The environment, the loaded libraries and
+    the remembered build failure are restored after."""
+    saved_env = {k: os.environ.get(k)
+                 for k in ("CXX", "GSTPU_TORCH_BUILD_DIR")}
+    saved_libs, saved_failed = dict(M.N._LIBS), M.CM._native_build_failed
+    with tempfile.TemporaryDirectory(dir=tmp) as build, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            os.environ.update(CXX="false", GSTPU_TORCH_BUILD_DIR=build)
+            M.N._LIBS.clear()
+            M.CM._native_build_failed = False
+            t0 = time.perf_counter()
+            _, images, points = M.CM.read_model(sparse)
+            fallback_ms = (time.perf_counter() - t0) * 1e3
+            built = sorted(os.listdir(build))
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            M.N._LIBS.clear()
+            M.N._LIBS.update(saved_libs)
+            M.CM._native_build_failed = saved_failed
+    warned = [str(w.message) for w in caught]
+    fallback_warned = len(warned) == 1 and "Python parser" in warned[0]
+    fallback_equal = dict(
+        points3D=same(points, native["points3D"]),
+        images=(list(images) == list(native["images"])
+                and all(same(images[i], native["images"][i])
+                        for i in images)))
+    emit("native_fallback", host_ms=fallback_ms,
+         fallback_warned=fallback_warned, warnings=warned,
+         build_dir_files=built, equal=fallback_equal, card=card)
+    check(fallback_warned and not built,
+          f"native: the fallback warned {warned}, built {built}")
+    check(all(fallback_equal.values()),
+          f"native: the fallback's read differs: {fallback_equal}")
 
 
 def train_curve_run(torch, M, tmp, card, steps):

@@ -7,8 +7,12 @@ and fixed-size records are decoded with ``np.frombuffer`` views, with one
 thin Python loop over the variable-length image/point records. Where a C++
 compiler is available, ``images.bin`` and ``points3D.bin`` go through the
 native reader (``utils/native.py``, ``csrc/colmap_reader.cpp``) instead,
-as in the JAX package; a corrupt file then raises ``ValueError``. The
-output is struct-of-arrays.
+as in the JAX package; a corrupt file then raises ``ValueError``. When the
+reader fails to build (a broken ``$CXX``, a build directory that cannot be
+written), the first read warns once and the process's reads fall back to
+the Python parser, as the JAX package's do, without running the compiler
+again; ``native.colmap_available()`` itself still raises. The output is
+struct-of-arrays.
 """
 
 from __future__ import annotations
@@ -16,11 +20,34 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
 
 from intro_to_gaussian_splatting_tpu_torch.utils import native
+
+# set once the native reader has failed to build in this process: reads then
+# use the Python parser and the compiler is not run again
+_native_build_failed = False
+
+
+def _native_reader() -> bool:
+    """True when the native COLMAP reader is to be used. A failed build
+    warns once per process and falls back to the Python parser; a corrupt
+    file still raises from the native reader."""
+    global _native_build_failed
+    if _native_build_failed:
+        return False
+    try:
+        return native.colmap_available()
+    except (RuntimeError, OSError) as e:
+        _native_build_failed = True
+        first = str(e).partition("\n")[0].rstrip(":")
+        warnings.warn(f"the native COLMAP reader did not build ({first}); "
+                      "the Python parser reads COLMAP files instead",
+                      RuntimeWarning, stacklevel=3)
+        return False
 
 # model_id -> (name, num_params); fixed by COLMAP (ref: splat/read_colmap.py:21-33)
 CAMERA_MODELS = {
@@ -142,7 +169,7 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
     """images.bin: u64 count, then per image: i32 id, 4xf64 qvec, 3xf64 tvec,
     i32 camera_id, NUL-terminated name, u64 npts, npts x (f64 x, f64 y, i64 id)
     (ref: splat/read_colmap.py:200-238)."""
-    if native.colmap_available():
+    if _native_reader():
         return _images_from_native(native.read_images_native(path))
     images: Dict[int, ColmapImage] = {}
     with open(path, "rb") as f:
@@ -197,7 +224,7 @@ def read_points3D_binary(path: str) -> ColmapPoints:
     """points3D.bin: u64 count, then per point: u64 id, 3xf64 xyz, 3xu8 rgb,
     f64 error (43 bytes), u64 track_len, track_len x (i32 image_id, i32 p2d)
     (ref: splat/read_colmap.py:284-300)."""
-    if native.colmap_available():
+    if _native_reader():
         return ColmapPoints(**native.read_points3d_native(path))
     with open(path, "rb") as f:
         buf = f.read()

@@ -7,10 +7,11 @@ arrays in and out are numpy. Each library is built at first use from the
 port's own sources into the port's build directory
 (``ops/cuda_build.HostSource``: ``g++ -O3 -march=native -fPIC -shared``).
 
-Unlike the JAX package, which turns every failure into "not available" and
-falls back to Python, ``*_available()`` is false only when there is no C++
-compiler on ``PATH``; a compiler that fails raises with its output, and a
-corrupt file raises ``ValueError``.
+``*_available()`` is false only when there is no C++ compiler on ``PATH``;
+a compiler that fails raises with its output, and a corrupt file raises
+``ValueError``. The COLMAP readers in ``io/colmap.py`` catch a failed
+build of the reader: they warn once and fall back to their Python parser,
+as the JAX package does. The oracle, a test reference, has no fallback.
 """
 
 from __future__ import annotations

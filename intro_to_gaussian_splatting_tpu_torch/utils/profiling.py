@@ -135,45 +135,60 @@ def profile_device_time(fn, *args, iters: int = 5, warmup: int = 1,
             if name_substr in e.name]
 
 
-def device_ms_in_turns(a, b, per_turn: int = 15):
+def device_ms_in_turns(a, b, per_turn: int = 15, min_launches: int = 0,
+                       max_rounds: int = 4):
     """``a`` and ``b`` timed in turns (a, b, b, a; ``per_turn`` calls
     each), each turn under its own torch.profiler session, so that a
-    comparison is made on one card at one time. Returns, for each, the
-    mean device duration (ms) of the CUDA kernels its calls launched and
-    how many the profiler timed."""
+    comparison is made on one card at one time. The profiler can drop a
+    session's kernel records, so the round of four turns is repeated, at
+    most ``max_rounds`` times, until each function has ``min_launches``
+    timed launches. Returns, for each, the mean device duration (ms) of
+    the CUDA kernels its calls launched and how many the profiler timed,
+    then the rounds it took."""
     a()
     b()
     _sync()
     durs = ([], [])
-    for i in (0, 1, 1, 0):
-        with torch.profiler.profile(activities=_activities()) as prof:
-            for _ in range(per_turn):
-                (a, b)[i]()
-            _sync()
-        durs[i].extend(e.device_time_total / 1e3
-                       for e in _kernel_events(prof))
-    return tuple((sum(d) / len(d) if d else float("nan"), len(d))
-                 for d in durs)
+    rounds = 0
+    while rounds < max(1, max_rounds) and (
+            rounds == 0 or min(len(d) for d in durs) < min_launches):
+        rounds += 1
+        for i in (0, 1, 1, 0):
+            with torch.profiler.profile(activities=_activities()) as prof:
+                for _ in range(per_turn):
+                    (a, b)[i]()
+                _sync()
+            durs[i].extend(e.device_time_total / 1e3
+                           for e in _kernel_events(prof))
+    return (*((sum(d) / len(d) if d else float("nan"), len(d))
+              for d in durs), rounds)
 
 
-def device_ms_per_call(fn, calls: int = 24, warmup: int = 1) -> dict:
+def device_ms_per_call(fn, calls: int = 24, warmup: int = 1,
+                       timed=None) -> dict:
     """``fn`` called ``calls`` times under torch.profiler. Returns, for
     each kernel (or copy) name its calls launched, (device ms per call,
     launches timed): the name's mean duration times its launches per
     call, so that a launch the profiler misses does not count as no
-    time."""
+    time. The profiler can drop a session's kernel records: where
+    ``timed(result)`` says too few were timed, the session is run again,
+    at most three times in all, and the last is returned."""
     for _ in range(warmup):
         fn()
     _sync()
-    with torch.profiler.profile(activities=_activities()) as prof:
-        for _ in range(calls):
-            fn()
-        _sync()
-    durs = {}
-    for e in _kernel_events(prof):
-        durs.setdefault(e.name, []).append(e.device_time_total / 1e3)
-    return {name: (sum(d) / len(d) * max(1, round(len(d) / calls)), len(d))
-            for name, d in durs.items()}
+    for _ in range(3):
+        with torch.profiler.profile(activities=_activities()) as prof:
+            for _ in range(calls):
+                fn()
+            _sync()
+        durs = {}
+        for e in _kernel_events(prof):
+            durs.setdefault(e.name, []).append(e.device_time_total / 1e3)
+        out = {name: (sum(d) / len(d) * max(1, round(len(d) / calls)),
+                      len(d)) for name, d in durs.items()}
+        if timed is None or timed(out):
+            break
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

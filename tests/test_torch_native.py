@@ -7,11 +7,16 @@ configurations of the JAX package's own oracle tests (tests/test_native.py),
 at their rtol 1e-4 / atol 1e-5; the port's ``render_dense`` against JAX's
 with the reference's exact break and without tile culling; the port's
 native COLMAP readers against the Python readers of both packages, values
-and dtypes equal; and the port's deliberate divergence from the JAX
-module: a corrupt file or a failing compiler raises.
+and dtypes equal; a failed build of the native reader: the port's readers
+warn once and return what the JAX package's return, as the JAX package's
+fall back; that a corrupt file, and ``*_available()`` on a failing
+compiler, still raise; and that the package data ships every source of
+the port's csrc/.
 """
 
 import dataclasses
+import tomllib
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -22,11 +27,13 @@ from intro_to_gaussian_splatting_tpu.config import (
     RasterizerConfig as JaxConfig,
 )
 from intro_to_gaussian_splatting_tpu.io import colmap as jax_colmap
+from intro_to_gaussian_splatting_tpu.io import dataset as jax_dataset
 from intro_to_gaussian_splatting_tpu.ops.compositing import (
     render_dense as jax_render_dense,
 )
 from intro_to_gaussian_splatting_tpu.utils import native as jax_native
 from intro_to_gaussian_splatting_tpu_torch.io import colmap as port_colmap
+from intro_to_gaussian_splatting_tpu_torch.io.dataset import load_scene
 from intro_to_gaussian_splatting_tpu_torch.io.synthetic import (
     make_colmap_scene,
 )
@@ -153,6 +160,59 @@ def test_native_colmap_matches_python_readers(tmp_path, monkeypatch):
             _assert_same(im_native[k], im_py[k])
 
 
+def test_failed_build_falls_back_to_the_python_parser(tmp_path, monkeypatch):
+    """A compiler that fails: the readers warn once, run the compiler once,
+    write nothing to the build directory and return what the JAX package's
+    Python readers return, field for field."""
+    scene = tmp_path / "scene"
+    sparse = make_colmap_scene(str(scene), num_points=300, num_cameras=3,
+                               device="cpu")
+    pts_file, im_file = (f"{sparse}/{f}.bin" for f in ("points3D", "images"))
+    build = tmp_path / "build"
+    monkeypatch.setenv("GSTPU_TORCH_BUILD_DIR", str(build))
+    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setattr(native, "_LIBS", {})
+    monkeypatch.setattr(port_colmap, "_native_build_failed", False)
+    monkeypatch.setattr(jax_native, "colmap_available", lambda: False)
+    builds = []
+    real_build = cuda_build.build
+
+    def counted_build(sources):
+        builds.append([src.name for src in sources])
+        return real_build(sources)
+
+    monkeypatch.setattr(cuda_build, "build", counted_build)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reads = [(port_colmap.read_points3D_binary(pts_file),
+                  port_colmap.read_images_binary(im_file))
+                 for _ in range(2)]
+        cameras, images, points = port_colmap.read_model(sparse)
+        got_scene = load_scene(str(scene), require_images=False,
+                               device="cpu")
+    assert [str(w.message) for w in caught] == [
+        "the native COLMAP reader did not build (build failed: "
+        "colmap_reader (false exit 1)); the Python parser reads COLMAP "
+        "files instead"]
+    assert caught[0].category is RuntimeWarning
+    assert builds == [["colmap_reader"]]
+    assert not build.exists() or not any(build.iterdir())
+
+    want_cameras, want_images, want_points = jax_colmap.read_model(sparse)
+    for pts, ims in reads + [(points, images)]:
+        _assert_same(pts, want_points)
+        assert list(ims) == list(want_images)
+        for k in want_images:
+            _assert_same(ims[k], want_images[k])
+    assert list(cameras) == list(want_cameras)
+    for k in want_cameras:
+        _assert_same(cameras[k], want_cameras[k])
+    want_scene = jax_dataset.load_scene(str(scene), require_images=False)
+    assert got_scene.names == want_scene.names
+    assert len(got_scene.cameras) == 3 and got_scene.targets == [None] * 3
+    _assert_same(got_scene.points, want_scene.points)
+
+
 @pytest.mark.parametrize("stem", ["points3D", "images"])
 def test_native_colmap_truncated_file_raises(tmp_path, stem):
     sparse = make_colmap_scene(str(tmp_path), num_points=50, num_cameras=2,
@@ -192,6 +252,18 @@ def test_failing_compiler_raises_with_its_output(tmp_path, monkeypatch):
     assert cuda_build.cxx_path() is None
     assert not native.oracle_available()
     assert not native.colmap_available()
+
+
+def test_package_data_ships_every_csrc_file():
+    """A non-editable install builds the kernels and the host libraries
+    from csrc/ at first use: the package data must list all of it."""
+    port = Path(native.__file__).resolve().parent.parent
+    meta = tomllib.loads((port.parent / "pyproject.toml").read_text())
+    patterns = meta["tool"]["setuptools"]["package-data"][port.name]
+    shipped = {f for pattern in patterns for f in port.glob(pattern)}
+    sources = [f for f in (port / "csrc").rglob("*") if f.is_file()]
+    assert {f.suffix for f in sources} == {".cu", ".cpp"}
+    assert [f.name for f in sources if f not in shipped] == []
 
 
 def test_is_coordinator_without_a_process_group():
