@@ -1,0 +1,15 @@
+"""Kernel B2's share (%) of its roofline: the least time the card could
+take for the work of one step (gsbench/counts.py, on the reference's count,
+against the published H100 peaks) over the kernel's mean device ms per
+launch in the trace."""
+
+from gsbench import counts
+
+
+def read(r):
+    ms = r.kernel_ms("rasterize_bwd_kernel")
+    if not ms:
+        return None
+    c = r.counts
+    return 100.0 * counts.bound_ms(
+        *counts.b2(c, c["tiles"], c["tile_size"])) / ms

@@ -1,0 +1,6 @@
+"""Host ms of the step's backward layer, synchronised before and after it, as
+the benchmark calls the layers (mean of the traced run's stage steps)."""
+
+
+def read(r):
+    return r.stage_ms.get("backward")
