@@ -1,0 +1,12 @@
+"""Idle ms of the card per training step while the host is inside the
+port's ``backward`` span (``torch.autograd.grad``: B2, the gather's
+segment sums, the projection's autograd): each idle moment of the traced
+window goes to the innermost span open on the host then, on the trace's
+clock (``gsbench/spans.py``)."""
+
+from gsbench import spans
+
+
+def read(r):
+    idle = spans.idle_ms(r.trace, "step", spans.TRAIN_STAGES)
+    return None if idle is None else idle["backward"]

@@ -41,6 +41,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.relayout import (
     untile_chw,
     untile_chw_fast,
 )
+from intro_to_gaussian_splatting_tpu_torch.utils.profiling import span
 
 OUT_CHANNELS = 5
 
@@ -390,6 +391,24 @@ def tile_pixel_mask(height: int, width: int, config: RasterizerConfig,
 # High-level tiled renderer
 # ---------------------------------------------------------------------------
 
+def _project_bin_rasterize(model, camera, config, active_sh_degree,
+                           mean2d_offset):
+    """(tile output, projection, bins) of one camera, each stage in its
+    span."""
+    h, w = camera.height, camera.width
+    ntx, nty = tile_grid(w, h, config.tile_size)
+    num_groups = num_groups_for(ntx * nty, config)
+    with span("project"):
+        proj = project_gaussians(model, camera, config, active_sh_degree,
+                                 mean2d_offset)
+    with span("bin"):
+        bins = bin_gaussians(proj, w, h, config)
+    with span("rasterize"):
+        tiles = rasterize_pairs(bins.pair_records, bins.tile_starts,
+                                bins.tile_counts, num_groups, config)
+    return tiles, proj, bins
+
+
 def render_tiles(
     model: GaussianModel,
     camera: Camera,
@@ -399,14 +418,9 @@ def render_tiles(
     mean2d_offset: Optional[torch.Tensor] = None,
 ):
     """Render in the rasterizer's tile layout, (NG, 5, GT, ts*ts)."""
-    h, w = camera.height, camera.width
-    ntx, nty = tile_grid(w, h, config.tile_size)
-    num_groups = num_groups_for(ntx * nty, config)
-    proj = project_gaussians(model, camera, config, active_sh_degree,
-                             mean2d_offset)
-    bins = bin_gaussians(proj, w, h, config)
-    tiles = rasterize_pairs(bins.pair_records, bins.tile_starts,
-                            bins.tile_counts, num_groups, config)
+    with span("render"):
+        tiles, proj, bins = _project_bin_rasterize(
+            model, camera, config, active_sh_degree, mean2d_offset)
     if return_aux:
         return tiles, dict(overflowed=bins.overflowed,
                            num_pairs=bins.num_pairs,
@@ -422,7 +436,8 @@ def render_tiled(
     return_aux: bool = False,
     mean2d_offset: Optional[torch.Tensor] = None,
 ):
-    """Full pipeline: project -> bin -> rasterize -> (H, W, 3).
+    """Full pipeline: project -> bin -> rasterize -> (H, W, 3), in a
+    ``view`` span.
 
     The colour channels go through ``untile_chw_fast`` (kernel B5-untile on
     the card) and one permute to (H, W, 3), as the JAX package's hot path
@@ -431,17 +446,16 @@ def render_tiled(
     h, w = camera.height, camera.width
     ts = config.tile_size
     ntx, nty = tile_grid(w, h, ts)
-    num_groups = num_groups_for(ntx * nty, config)
-
-    proj = project_gaussians(model, camera, config, active_sh_degree,
-                             mean2d_offset)
-    bins = bin_gaussians(proj, w, h, config)
-    tile_out = rasterize_pairs(bins.pair_records, bins.tile_starts,
-                               bins.tile_counts, num_groups, config)
-    image = untile_chw_fast(tile_out, ntx, nty, ts, h, w).permute(1, 2, 0)
-    if config.compat.skip_last_tile:
-        image = image * skip_last_tile_mask(h, w, ts, image.device)[..., None]
-    if return_aux:
+    with span("view"):
+        tile_out, proj, bins = _project_bin_rasterize(
+            model, camera, config, active_sh_degree, mean2d_offset)
+        image = untile_chw_fast(tile_out, ntx, nty, ts, h,
+                                w).permute(1, 2, 0)
+        if config.compat.skip_last_tile:
+            image = image * skip_last_tile_mask(h, w, ts,
+                                                image.device)[..., None]
+        if not return_aux:
+            return image
         depth_alpha = untile(tile_out[:, 3:5], ntx, nty, ts, h, w)
         alpha = depth_alpha[..., 1]
         return image, dict(
@@ -455,7 +469,6 @@ def render_tiled(
             num_pairs=bins.num_pairs,
             visible=proj.valid.detach(),
         )
-    return image
 
 
 __all__ = [

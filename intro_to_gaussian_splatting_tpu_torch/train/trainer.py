@@ -86,6 +86,7 @@ from intro_to_gaussian_splatting_tpu_torch.train.loss import (
     tile_l1,
     tile_psnr,
 )
+from intro_to_gaussian_splatting_tpu_torch.utils.profiling import span
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -176,11 +177,12 @@ class Optimizer:
              state: OptState) -> OptState:
         """Apply one update to the model's parameters in place; dead slots
         keep their values (their moments still update)."""
-        updates, state = self.update(grads, state)
-        for name in PARAM_NAMES:
-            p = getattr(model, name)
-            keep = model.active.reshape((-1,) + (1,) * (p.dim() - 1))
-            p.copy_(torch.where(keep, p + updates[name], p))
+        with span("optimizer"):
+            updates, state = self.update(grads, state)
+            for name in PARAM_NAMES:
+                p = getattr(model, name)
+                keep = model.active.reshape((-1,) + (1,) * (p.dim() - 1))
+                p.copy_(torch.where(keep, p + updates[name], p))
         return state
 
     @staticmethod
@@ -241,7 +243,8 @@ def camera_loss_and_grads(model: GaussianModel, camera: Camera,
                     + wt * (1.0 - fused_ssim(img, target_image,
                                              grad_target=False)))
     inputs = [getattr(model, name) for name in PARAM_NAMES] + [probe]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = {name: torch.zeros_like(x) if g is None else g
              for name, x, g in zip(PARAM_NAMES + ("probe",), inputs, grads)}
     return loss.detach(), mse, tiles.detach(), aux, grads
@@ -535,27 +538,28 @@ class Trainer:
             np.arange(iterations) % n_units)
         t0 = time.time()
         for it in range(iterations):
-            metrics = self._train_unit(int(order[it]))
-            self.step += 1
-            self._overflow_count += metrics["overflowed"].to(torch.int32)
-            self._maybe_densify()
-            self._maybe_checkpoint()
-            if self.step % self.log_every == 0 or it == iterations - 1:
-                m = dict(metrics, overflow_steps=self._overflow_count)
-                m = self._fetch_metrics(m)
-                # steps since the last boundary whose pool overflowed
-                total = int(m.pop("overflow_steps"))
-                m["overflow_steps"] = total - self._overflow_seen
-                self._overflow_seen = total
-                m.update(step=self.step, sec=round(time.time() - t0, 2))
-                self.history.append(m)
-                if self.jsonl_path:
-                    with open(self.jsonl_path, "a") as f:
-                        f.write(json.dumps(m) + "\n")
-                if self.on_log:
-                    self.on_log(m)
-                if m["overflow_steps"] > 0:
-                    self._grow_pair_pool()
+            with span("step"):
+                metrics = self._train_unit(int(order[it]))
+                self.step += 1
+                self._overflow_count += metrics["overflowed"].to(torch.int32)
+                self._maybe_densify()
+                self._maybe_checkpoint()
+                if self.step % self.log_every == 0 or it == iterations - 1:
+                    m = dict(metrics, overflow_steps=self._overflow_count)
+                    m = self._fetch_metrics(m)
+                    # steps since the last boundary whose pool overflowed
+                    total = int(m.pop("overflow_steps"))
+                    m["overflow_steps"] = total - self._overflow_seen
+                    self._overflow_seen = total
+                    m.update(step=self.step, sec=round(time.time() - t0, 2))
+                    self.history.append(m)
+                    if self.jsonl_path:
+                        with open(self.jsonl_path, "a") as f:
+                            f.write(json.dumps(m) + "\n")
+                    if self.on_log:
+                        self.on_log(m)
+                    if m["overflow_steps"] > 0:
+                        self._grow_pair_pool()
         return self.history
 
     @staticmethod

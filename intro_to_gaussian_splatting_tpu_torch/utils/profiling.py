@@ -2,9 +2,10 @@
 
 The port's counterpart of the JAX package's ``utils/profiling.py``:
 
-  * ``trace(...)``         a context manager around ``torch.profiler`` that
-                           writes a Chrome trace (``trace.json``) into a
-                           directory;
+  * ``span(name)``, ``spans()``  named spans of the port's layers,
+                           recorded only while a ``torch.profiler`` session
+                           is open, kept in memory (the newest
+                           ``SPAN_BUFFER``);
   * ``benchmark(...)``     wall time per call with the card synchronised,
                            the first call (where the kernels build) timed
                            apart;
@@ -23,19 +24,35 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
                            and float32 operations.
 
 The JAX package's TPU roofline (MXU passes, VPU ratio, ``TPU_PEAKS``)
-describes a TPU and has no counterpart here.
+describes a TPU and has no counterpart here, and its ``trace`` (a Chrome
+trace written to a directory) none either: ``torch.profiler`` exports one.
+
+Spans: ``with span("render"): ...`` marks a layer of the port. Outside a
+profiler session it costs one attribute read and returns a shared object
+that records nothing. Inside one it records the span's name, its parent
+(the innermost span open on the same thread), its thread, its start and end
+on ``time.perf_counter_ns()`` and its unit: a ``step`` or ``view`` span
+opens a unit of work, and every span inside it carries that unit's id.
+Where CUDA is initialised it also records two timing events on the current
+stream, at enter and at exit, each bracketed by host times (``marks``):
+each record shows in the profiler's trace as a runtime call
+(``cudaEventRecordWithFlags`` under torch 2.11), so the marks put the spans
+on the trace's clock. Events come from a pool and return to it when their
+span leaves the buffer.
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import dataclasses
-import os
+import itertools
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), at its 700 W limit:
 # HBM3 bandwidth and float32 outside the tensor cores.
@@ -51,6 +68,136 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+# spans that open a unit of work; the spans inside one share its id
+UNIT_SPANS = ("step", "view")
+# the newest spans kept in memory
+SPAN_BUFFER = 10_000
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. ``start_ns`` / ``end_ns`` and each ``marks`` pair
+    (host times just before and after a CUDA event record, enter's
+    first) are ``time.perf_counter_ns()``. ``device_ms`` is the card's
+    time between the span's two events; None without events or before
+    the card has passed the second."""
+
+    id: int
+    name: str
+    parent: Optional[int]
+    thread: int
+    unit: Optional[int]
+    start_ns: int
+    end_ns: int
+    marks: tuple
+    device_ms: Optional[float]
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_SPANS: collections.deque = collections.deque()
+_EVENT_POOL: list = []
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
+_IDS = itertools.count()
+
+
+def _open_stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "thread", "unit", "start_ns",
+                 "end_ns", "marks", "events")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _open_stack()
+        outer = stack[-1] if stack else None
+        self.id = next(_IDS)
+        self.parent = None if outer is None else outer.id
+        self.unit = (self.id if self.name in UNIT_SPANS
+                     else None if outer is None else outer.unit)
+        self.thread = threading.get_ident()
+        self.events = _take_events() if torch.cuda.is_initialized() else None
+        self.marks = []
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        if self.events:
+            self._record(self.events[0])
+        return self
+
+    def __exit__(self, *exc):
+        if self.events:
+            self._record(self.events[1])
+        self.end_ns = time.perf_counter_ns()
+        _open_stack().pop()
+        with _LOCK:
+            if len(_SPANS) >= SPAN_BUFFER:
+                old = _SPANS.popleft()
+                if old.events:
+                    _EVENT_POOL.extend(old.events)
+            _SPANS.append(self)
+        return False
+
+    def _record(self, event) -> None:
+        t0 = time.perf_counter_ns()
+        event.record()
+        self.marks.append((t0, time.perf_counter_ns()))
+
+
+def _take_events() -> list:
+    with _LOCK:
+        return [_EVENT_POOL.pop() if _EVENT_POOL
+                else torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+
+def span(name: str):
+    """A context manager that records a span named ``name`` while a
+    ``torch.profiler`` session is open, and nothing otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def _device_ms(events) -> Optional[float]:
+    if not events or not events[1].query():
+        return None
+    return events[0].elapsed_time(events[1])
+
+
+def spans() -> List[SpanRecord]:
+    """The spans in the buffer, in the order they closed, each with its
+    device ms. Read it after synchronising the card: it waits for
+    nothing."""
+    with _LOCK:
+        kept = list(_SPANS)
+    return [SpanRecord(s.id, s.name, s.parent, s.thread, s.unit, s.start_ns,
+                       s.end_ns, tuple(s.marks), _device_ms(s.events))
+            for s in kept]
+
+
+# ---------------------------------------------------------------------------
+# Timing helpers
+# ---------------------------------------------------------------------------
+
 def _sync() -> None:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -61,20 +208,6 @@ def _activities():
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
-
-
-@contextlib.contextmanager
-def trace(log_dir: str, enabled: bool = True):
-    """``with trace(dir): run_step()`` -> ``dir/trace.json``, a Chrome trace
-    of the host ops and, where there is a card, its kernels."""
-    if not enabled:
-        yield
-        return
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=_activities()) as prof:
-        yield
-        _sync()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 @dataclasses.dataclass

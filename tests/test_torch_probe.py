@@ -97,10 +97,10 @@ def test_probe_zero_plain_and_sizes():
     assert P.window_chunks(starts, counts)[1].tolist() == [1] * 10
 
 
-def test_profiling_helpers_on_the_cpu(tmp_path):
+def test_profiling_helpers_on_the_cpu():
     """The port's utils/profiling.py off the card: benchmark's first call
-    timed apart, a Chrome trace written, the card's ceilings (P1's bound:
-    539.5 MB over 3.35 TB/s), no device time without a card."""
+    timed apart, the card's ceilings (P1's bound: 539.5 MB over 3.35
+    TB/s), no device time without a card."""
     from intro_to_gaussian_splatting_tpu_torch.utils import profiling as U
 
     calls = []
@@ -108,9 +108,6 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     assert len(calls) == 6 and res.iters == 4
     assert 0 <= res.min_s <= res.mean_s and res.first_s >= 0
     assert res.mpix_per_s(1000, 1000) == pytest.approx(1.0 / res.mean_s)
-    with U.trace(str(tmp_path / "t")):
-        torch.ones(8).sum()
-    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
     ms, by = U.bound(4 * P.NT * 8 * 256, 0)
     assert by == "bytes" and ms == pytest.approx(0.16104, rel=1e-4)
     assert U.bound(0, 67e9) == (pytest.approx(1.0), "operations")
