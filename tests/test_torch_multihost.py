@@ -39,6 +39,7 @@ from intro_to_gaussian_splatting_tpu_torch.parallel.multihost import (
     put_global_tree,
 )
 from intro_to_gaussian_splatting_tpu_torch.train.densify import DensifyState
+from tests.procs import communicate_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,10 +60,10 @@ def test_four_process_sharded_train_step():
          str(pid), "4", f"127.0.0.1:{port}", "--cpu"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for pid in range(4)]
-    outs = []
+    # about 10x the ranks' slowest run seen: 10.8 s in a tier-1 run (6 xdist
+    # workers on 8 cores, load averages 11-15)
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=180)[0])
+        outs = [out for out, _ in communicate_all(procs, 110)]
     finally:
         for p in procs:
             if p.poll() is None:

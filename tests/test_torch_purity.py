@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from tests.procs import communicate_all
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "intro_to_gaussian_splatting_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "intro_to_gaussian_splatting_tpu")
@@ -53,13 +55,19 @@ def _start(code_or_args, cwd):
                             stderr=subprocess.PIPE, text=True)
 
 
-def _wait(proc):
-    out, err = proc.communicate(timeout=120)
-    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+# about 10x the slowest wait seen: 9.0 s to import every module of the port
+# in a tier-1 run (6 xdist workers on 8 cores, load averages up to 15)
+WAIT_LIMIT_S = 100
+
+
+def _wait(*procs):
+    return [subprocess.CompletedProcess(p.args, p.returncode, out, err)
+            for p, (out, err) in zip(procs,
+                                     communicate_all(procs, WAIT_LIMIT_S))]
 
 
 def _run(code_or_args, cwd):
-    return _wait(_start(code_or_args, cwd))
+    return _wait(_start(code_or_args, cwd))[0]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -86,7 +94,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     alone.write_text((REPO / "chip_smoke.py").read_text())
     procs = [_start([str(REPO / "chip_smoke.py")], REPO),
              _start([str(alone)], tmp_path)]
-    r, r_alone = (_wait(p) for p in procs)
+    r, r_alone = _wait(*procs)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
     assert r_alone.returncode != 0
