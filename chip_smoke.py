@@ -12,7 +12,7 @@ It imports only the port (``intro_to_gaussian_splatting_tpu_torch``), never
 JAX, and prints one JSON line per phase:
 
   device          card name and power limit, torch and CUDA versions, the
-                  build of all ten kernels (one nvcc per source, started
+                  build of all eleven kernels (one nvcc per source, started
                   together) and ptxas's register / shared-memory / spill
                   report;
   small           a small seeded scene rendered on the card against the
@@ -53,7 +53,7 @@ JAX, and prints one JSON line per phase:
   train_ref_init  ten ``train_step``s at that scene (bench.py's gradient
                   target, ``TrainConfig()``), every launch count set to 0
                   just before and read just after: per step loss, PSNR and
-                  launches of B1, B2 and B3; step time on a host clock
+                  launches of B1, B2, B3 and G1; step time on a host clock
                   around synchronised steps (mean of steps 2-10) and as
                   Mpix/s; stage times; one step under torch.profiler (its
                   kernel ms, idle share and each port kernel's ms); peak
@@ -71,6 +71,13 @@ JAX, and prints one JSON line per phase:
                   scenes), bounds, plain times and (B5-tile, timed as
                   B5-untile) the library call's; the step's gradients
                   from two backward passes bit for bit equal;
+  g1_kernel       G1, the gather's backward, at the training benchmark's
+                  shapes (the KNN init in a pool of 4x its gaussians, 256
+                  pairs per gaussian: 53.6M slots) on a seeded cotangent:
+                  against its plain version (the library chain it
+                  replaced) and the float64 block sums, exact zeros, bit
+                  for bit on repeat, one launch per call; its ms beside
+                  its bound and the plain chain's ms;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
                   3x3324x5068 images (B4b and B4c at both grad_target
                   settings), B4c's value B4a's bit for bit, times (B4a's
@@ -78,10 +85,11 @@ JAX, and prints one JSON line per phase:
                   one-pass path ``fused_ssim(precompute_grad=True)`` under
                   autograd, counted (B4c once);
   train_split_ref_init    ten split-loss ``train_step``s at ref_init, each
-                  launching B1, B2, B4a, B4b, B5-untile and B5-tile once
-                  and B3 never, counted from 0 as above;
+                  launching B1, B2, B4a, B4b, B5-untile, B5-tile and G1
+                  once and B3 never, counted from 0 as above;
   train_batched_ref_init  five ``train_step_batched`` steps over two ring
-                  cameras at ref_init, each launching B1, B2 and B3 twice;
+                  cameras at ref_init, each launching B1, B2, B3 and G1
+                  twice;
   probes          the port's probe script (P1, P2 at 65,856 programs) with
                   the counts set to 0 just before and read just after, P1
                   exactly zero, P2 against its plain version on the
@@ -138,8 +146,8 @@ JAX, and prints one JSON line per phase:
                   gaussians, densify every 100 steps): targets rendered on
                   the card, then the run with the launch counts set to 0
                   just before and read just after; every logged loss and
-                  PSNR finite, PSNR climbing by more than 1 dB, B1, B2
-                  and B3 exactly once per step, ``num_active`` moving at a
+                  PSNR finite, PSNR climbing by more than 1 dB, B1, B2,
+                  B3 and G1 exactly once per step, ``num_active`` moving at a
                   densify step; wall s, steps/s, PSNR first / best /
                   final, each pool growth and densify pass, peak memory
                   and the curve.
@@ -150,9 +158,10 @@ before it.
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
 the ref_init render gradient, B4a and B4b from the split-loss run, B4c from
-the one-pass SSIM path, P1 and P2 from the probe script) and, last, the
-contract line. Any failed check exits non-zero before the last line; with
-no card, or outside a checkout, it exits non-zero and prints no result.
+the one-pass SSIM path, P1 and P2 from the probe script, G1 from its phase)
+and, last, the contract line. Any failed check exits non-zero before the
+last line; with no card, or outside a checkout, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -218,7 +227,7 @@ PORT_KERNELS = {
     "B1": "rasterize_fwd_kernel", "B2": "rasterize_bwd_kernel",
     "B3": "fused_loss_kernel", "B4a": "ssim_sum_kernel",
     "B4b/c": "ssim_grad_kernel", "B5-untile": "::untile_chw_kernel",
-    "B5-tile": "::tile_chw_kernel",
+    "B5-tile": "::tile_chw_kernel", "G1": "segment_sums_kernel",
 }
 # Record rows B1 reads per pair: mean, conic, opacity and the 5 payload
 # rows; 4 more with the pixel-bbox test
@@ -527,7 +536,7 @@ def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
 
 def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
     """The training main path: ``steps`` train_steps of the default
-    TrainConfig, each launching B1, B2 and B3 once (``run_steps``), then
+    TrainConfig, each launching B1, B2, B3 and G1 once (``run_steps``), then
     the stage times of three more. Returns the launch totals by kernel and
     the step ms."""
     tcfg = M.TrainConfig()
@@ -544,7 +553,8 @@ def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
 
     launches, step_ms = run_steps(
         torch, M, f"train_{scene}", step, model,
-        {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1}, steps,
+        {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1,
+         "segment_sums": 1}, steps,
         cam.width * cam.height / 1e6, card, after=stages)
     return ({"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]},
             step_ms)
@@ -762,6 +772,93 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     check(b5_equal, f"{scene}: B5-tile differs from its plain version")
     check(step_repeat, f"{scene}: two backward passes of a step differ")
     return rows
+
+
+def g1_kernel(torch, M, model, cam, card):
+    """G1, the gather's backward, at the training benchmark's shapes:
+    ``model`` binned at 256 pairs per gaussian with the projection's
+    gradient fields as leaves, a seeded cotangent in every row and slot
+    (G1 reads only the gradient rows of the emitted slots). G1 against
+    its plain version (the library chain it replaced; relative L2 1e-5),
+    both against the float64 block sums (G1 no further off than the plain
+    version, or within 1e-6), exact zeros outside the gradient rows and
+    for gaussians with no pairs, bit for bit on repeat, one launch per
+    call; profiler and CUDA-event ms (each of its two kernels apart), its
+    bound (bytes: the 10 gradient rows and perm of each emitted slot read,
+    lo and hi read and 16 floats written per gaussian) and the plain
+    chain's ms. Returns its kernel row."""
+    B = M.B
+    cfg = M.RasterizerConfig(pairs_per_gaussian=256, group_tiles=16,
+                             groups_per_step=16)
+    with torch.no_grad():
+        proj = M.project_gaussians(model, cam, cfg)
+    leaves = {f: getattr(proj, f).requires_grad_(True)
+              for f in ("mean2d", "conic", "opacity", "color", "depth")}
+    bins = M.bin_gaussians(dataclasses.replace(proj, **leaves), cam.width,
+                           cam.height, cfg)
+    node = bins.pair_records.grad_fn   # the gather's: perm, lo, hi saved
+    perm, lo, hi = node.saved_tensors
+    total, n, mp = node.total_emit, lo.shape[0], perm.shape[0]
+    del bins, proj, leaves
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    g = torch.randn((16, mp), generator=gen, device="cuda")
+    args = (g, perm, lo, hi, n)
+    before = B.SEGMENT_SUMS.launches
+    d = B.gather_pairs_backward(*args, total)
+    again = B.gather_pairs_backward(*args, total)
+    launched = B.SEGMENT_SUMS.launches - before
+    plain = B.gather_pairs_backward_reference(*args)
+    rows = list(M.GRAD_ROWS)
+    inv = torch.empty(total, dtype=torch.int64, device="cuda")
+    inv[perm[:total]] = torch.arange(total, device="cuda")
+    cum = torch.nn.functional.pad(
+        torch.cumsum(g[rows][:, inv].double(), dim=1), (1, 0))
+    exact = cum[:, hi] - cum[:, lo]
+    del inv, cum
+    torch.cuda.synchronize()
+    others = [r for r in range(16) if r not in M.GRAD_ROWS]
+    empty = lo == hi
+    err = rel_l2(torch, d[rows], exact)
+    plain_err = rel_l2(torch, plain[rows], exact)
+    vs_plain = rel_l2(torch, d, plain)
+    zeros = not d[others].any() and not d[:, empty].any()
+    repeat = torch.equal(d, again)
+    del exact, again
+    times = profiled(M, lambda: B.gather_pairs_backward(*args, total),
+                     ("segment_sums_kernel", "to_emission_kernel"))
+    plain_ms = M.U.cuda_ms(lambda: B.gather_pairs_backward_reference(*args),
+                           iters=3)
+    nbytes = 48 * total + 80 * n
+    bound, by = M.U.bound(nbytes, 0)
+    pairs = (hi - lo)[~empty]
+    row = dict(name="G1 segment_sums", route="cuda",
+               source=f"{PACKAGE}/csrc/segment_sums.cu",
+               # no Pallas kernel: the JAX package's gather transpose is
+               # XLA ops
+               replaces=None, launches=launched,
+               max_abs_err=float((d - plain).abs().max()), **times,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=None)
+    emit("g1_kernel", kernels=[row], gaussians=n, pool_slots=mp,
+         emitted_pairs=total, bytes=nbytes,
+         pairs_per_gaussian=dict(mean=float(pairs.double().mean()),
+                                 max=int(pairs.max())),
+         gaussians_with_pairs=int(pairs.numel()),
+         rel_l2_vs_float64=err, plain_rel_l2_vs_float64=plain_err,
+         rel_l2_vs_plain=vs_plain, exact_zeros=zeros,
+         bit_equal_on_repeat=repeat,
+         library_ms_null_reason="no single PyTorch call computes this "
+                                "function; its plain version is a "
+                                "composition of many",
+         tolerance="relative L2 1e-5 against the plain version; no further "
+                   "than it from the float64 sums, or within 1e-6",
+         card=card)
+    check(vs_plain <= 1e-5 and err <= max(plain_err, 1e-6),
+          f"g1_kernel: G1 disagrees: {vs_plain} against the plain version, "
+          f"{err} against the float64 sums (plain {plain_err})")
+    check(zeros and repeat and launched == 2,
+          f"g1_kernel: zeros {zeros}, repeat {repeat}, launches {launched}")
+    return row
 
 
 def ssim_kernels(torch, M, height, width, card):
@@ -1688,7 +1785,7 @@ def train_curve_run(torch, M, tmp, card, steps):
     rendered on the card (B1 and B5-untile once per camera), then the
     Trainer's run with every launch count set to 0 just before and read
     just after. Gates: every logged loss and PSNR finite, PSNR climbing by
-    more than 1 dB, B1, B2 and B3 launched exactly once per step, and
+    more than 1 dB, B1, B2, B3 and G1 launched exactly once per step, and
     ``num_active`` moving at a densify step."""
     args = M.TC.parse_args(["--steps", str(steps), "--out",
                             os.path.join(tmp, "train_curve.jsonl")])
@@ -1716,8 +1813,9 @@ def train_curve_run(torch, M, tmp, card, steps):
           f"train_curve: PSNR did not climb by more than 1 dB "
           f"({summary['first_psnr']} -> {summary['final_psnr']})")
     check(all(launches.get(k) == steps for k in
-              ("rasterize_fwd", "rasterize_bwd", "fused_loss")),
-          f"train_curve: not one B1, B2 and B3 per step: {launches}")
+              ("rasterize_fwd", "rasterize_bwd", "fused_loss",
+               "segment_sums")),
+          f"train_curve: not one B1, B2, B3 and G1 per step: {launches}")
     check(target_launches.get("rasterize_fwd") == args.cameras
           and target_launches.get("untile_chw") == args.cameras,
           f"train_curve: target renders launched {target_launches}")
@@ -1752,6 +1850,7 @@ def main() -> int:
     from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
         PARAM_NAMES,
     )
+    from intro_to_gaussian_splatting_tpu_torch.ops import binning as B
     from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
     from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as FL
     from intro_to_gaussian_splatting_tpu_torch.ops import probe as P
@@ -1790,7 +1889,8 @@ def main() -> int:
     import numpy as np
 
     M = types.SimpleNamespace(
-        R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E, LS=LS,
+        B=B, R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E,
+        LS=LS,
         SP=SP, N=N, TC=TC, CM=CM, cuda_build=cuda_build,
         GaussianModel=GaussianModel, render_dense=render_dense,
         sorted_records=sorted_records, make_colmap_scene=make_colmap_scene,
@@ -1801,7 +1901,8 @@ def main() -> int:
         init_from_points=init_from_points,
         ALL_KERNELS=(R.RASTERIZE_FWD, R.RASTERIZE_BWD, FL.FUSED_LOSS,
                      L.UNTILE_CHW, L.TILE_CHW, S.SSIM_SUM, S.SSIM_GRAD,
-                     S.SSIM_VALUE_GRAD, P.PROBE_ZERO, P.PROBE_WINDOW))
+                     S.SSIM_VALUE_GRAD, P.PROBE_ZERO, P.PROBE_WINDOW,
+                     B.SEGMENT_SUMS))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
@@ -2199,6 +2300,13 @@ def main() -> int:
         del g_img
         torch.cuda.empty_cache()
 
+    # -- G1 at the training benchmark's pool: the KNN init among 3x as many
+    # free slots, 256 pairs per gaussian
+    g1_rows = [g1_kernel(torch, M, init_from_points(
+        xyz, rgb, scale_init=None, opacity=0.9, capacity=4 * len(xyz),
+        device="cuda"), cam, card)]
+    torch.cuda.empty_cache()
+
     # -- the split-loss SSIM kernels at the training path's size, then the
     # split-loss and batched training paths at the ref_init scene
     b4_rows = ssim_kernels(torch, M, height, width, card)
@@ -2212,7 +2320,7 @@ def main() -> int:
         cfg, TrainConfig(fused_loss=False))
     one_each = {k.symbol: 1 for k in (R.RASTERIZE_FWD, R.RASTERIZE_BWD,
                                       S.SSIM_SUM, S.SSIM_GRAD, L.UNTILE_CHW,
-                                      L.TILE_CHW)}
+                                      L.TILE_CHW, B.SEGMENT_SUMS)}
     split_launches, _ = run_steps(torch, M, "train_split_ref_init", split_step,
                                model, dict(one_each, fused_loss=0), 10, mpix,
                                card)
@@ -2231,7 +2339,8 @@ def main() -> int:
         (None, None, torch.stack([target, target.flip(2)])), cfg,
         TrainConfig())
     run_steps(torch, M, "train_batched_ref_init", batched_step, model,
-              {"rasterize_fwd": 2, "rasterize_bwd": 2, "fused_loss": 2}, 5,
+              {"rasterize_fwd": 2, "rasterize_bwd": 2, "fused_loss": 2,
+               "segment_sums": 2}, 5,
               2 * mpix, card)
     del batched_step, model
     torch.cuda.empty_cache()
@@ -2289,7 +2398,8 @@ def main() -> int:
         train_curve_run(torch, M, tmp, card, TRAIN_CURVE_STEPS)
 
     print(card, flush=True)
-    print(json.dumps({"kernels": summary["ref_init"] + b4_rows + p_rows}),
+    print(json.dumps({"kernels": summary["ref_init"] + b4_rows + p_rows
+                      + g1_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

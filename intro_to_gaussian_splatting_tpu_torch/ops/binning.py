@@ -16,13 +16,15 @@
 
 The gather's gradient sums each gaussian's pair gradients. PyTorch's own
 indexing backward would scatter-add them with atomics on the card, in an
-order that changes from run to run; ``_GatherPairs`` instead does what the
-JAX package's ``_gather_pairs_fm`` VJP does: it puts the pair gradients
-back in emission order, where each gaussian's pairs are one contiguous
-block, and takes each block's sum as a difference of a two-level running
-sum. Every step is a gather, a scatter to distinct slots, or a scan over
-rows of a 2-D tensor, so the gradient is the same bit for bit from run to
-run.
+order that changes from run to run. In emission order each gaussian's
+pairs are one contiguous block, and ``_GatherPairs``' backward sums each
+block in a fixed order: on the card kernel G1 (csrc/segment_sums.cu) moves
+the emitted pairs' gradients to emission order as 64-byte records and
+sums each gaussian's contiguous run; on the CPU the plain version,
+``gather_pairs_backward_reference``, does what the JAX package's
+``_gather_pairs_fm`` VJP does: it puts the pair gradients back in emission
+order and takes each block's sum as a difference of a two-level running
+sum. Either way the gradient is the same bit for bit from run to run.
 
 The pair pool is ``round_up(pairs_per_gaussian * N, chunk_size)`` slots plus
 one trailing chunk of sentinel-keyed slots, as in the JAX package. Above 4M
@@ -34,6 +36,7 @@ the same.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
@@ -41,6 +44,10 @@ import torch
 
 from intro_to_gaussian_splatting_tpu_torch.config import RasterizerConfig
 from intro_to_gaussian_splatting_tpu_torch.ops import projection as P
+from intro_to_gaussian_splatting_tpu_torch.ops.cuda_build import (
+    CudaKernel,
+    KernelSource,
+)
 from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
     ProjectedGaussians,
     pack_records,
@@ -59,6 +66,18 @@ class TileBins:
     group_starts: torch.Tensor  # (NG + 1,) int32 first pair of each group
     num_pairs: torch.Tensor     # () int32 total emitted pairs (pre-drop)
     overflowed: torch.Tensor    # () bool: num_pairs > max_pairs
+
+
+# kernel G1, the gather's backward on the card (it only adds, so
+# -fmad=false, which every kernel of the port takes, changes nothing)
+SEGMENT_SUMS_SOURCE = KernelSource("segment_sums", ("-fmad=false",))
+SEGMENT_SUMS = CudaKernel(SEGMENT_SUMS_SOURCE, "segment_sums", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+])
+GRAD_ROWS_MASK = sum(1 << r for r in P.GRAD_ROWS)
+MAX_SLOTS = 2 ** 31 - 32   # G1 indexes pair slots in 32 bits
 
 
 def tile_grid(width: int, height: int, tile_size: int) -> Tuple[int, int]:
@@ -121,7 +140,7 @@ class _GatherPairs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, records_rank, sorted_rank, perm, sorted_keys, valid,
-                lo, hi, ntx, ts):
+                lo, hi, ntx, ts, total_emit):
         out = records_rank[:, sorted_rank]
         zero = torch.zeros((), dtype=sorted_keys.dtype,
                            device=sorted_keys.device)
@@ -135,23 +154,73 @@ class _GatherPairs(torch.autograd.Function):
         out[P.REC_TILE] = sorted_keys.to(torch.float32)
         ctx.save_for_backward(perm, lo, hi)
         ctx.n = records_rank.shape[1]
+        ctx.total_emit = total_emit
         return out
 
     @staticmethod
     def backward(ctx, g):
         perm, lo, hi = ctx.saved_tensors
-        # only these rows carry pair gradients back to the gaussians
-        rows = torch.as_tensor(P.GRAD_ROWS, device=g.device)
-        g_rows = g[rows]                                     # (10, MP)
-        # back to emission order: sorted slot i came from emission slot
-        # perm[i]; distinct targets, so the scatter is exact
-        g_em = torch.empty_like(g_rows)
-        g_em[:, perm] = g_rows
-        del g_rows
-        d = torch.zeros((P.NUM_REC_ROWS, ctx.n), dtype=g.dtype,
-                        device=g.device)
-        d[rows] = _segment_sums(g_em, lo, hi)
-        return d, None, None, None, None, None, None, None, None
+        d = gather_pairs_backward(g.contiguous(), perm, lo, hi, ctx.n,
+                                  ctx.total_emit)
+        return d, None, None, None, None, None, None, None, None, None
+
+
+def gather_pairs_backward_reference(g: torch.Tensor, perm: torch.Tensor,
+                                    lo: torch.Tensor, hi: torch.Tensor,
+                                    n: int) -> torch.Tensor:
+    """The gather's gradient (16, N) from the records' (16, MP) gradient
+    ``g`` in sorted-pair order: per gaussian the sums of its emission block
+    [lo, hi) in the gradient rows, zeros in the others. The plain version
+    of kernel G1, run on the CPU; on the card it is the library chain that
+    G1 replaced."""
+    # only these rows carry pair gradients back to the gaussians
+    rows = torch.as_tensor(P.GRAD_ROWS, device=g.device)
+    g_rows = g[rows]                                     # (10, MP)
+    # back to emission order: sorted slot i came from emission slot
+    # perm[i]; distinct targets, so the scatter is exact
+    g_em = torch.empty_like(g_rows)
+    g_em[:, perm] = g_rows
+    del g_rows
+    d = torch.zeros((P.NUM_REC_ROWS, n), dtype=g.dtype, device=g.device)
+    d[rows] = _segment_sums(g_em, lo, hi)
+    return d
+
+
+def _gather_pairs_backward_cuda(g, perm, lo, hi, n, total_emit):
+    dev = g.device
+    mp = g.shape[1] if g.dim() == 2 else -1
+    if (g.shape != (P.NUM_REC_ROWS, mp) or g.dtype != torch.float32
+            or not g.is_contiguous()):
+        raise ValueError(f"G1 takes a contiguous float32 ({P.NUM_REC_ROWS}, "
+                         f"MP) gradient, got {g.dtype} {tuple(g.shape)}")
+    for name, t, size in (("perm", perm, mp), ("lo", lo, n), ("hi", hi, n)):
+        if (t.shape != (size,) or t.dtype != torch.int64
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name} must be a contiguous int64 ({size},) "
+                             f"tensor on {dev}")
+    if not 0 <= total_emit <= mp <= MAX_SLOTS:
+        raise ValueError(f"G1 takes 0 <= total_emit <= MP <= {MAX_SLOTS}, "
+                         f"got total_emit {total_emit}, MP {mp}")
+    # each emitted pair's gradient as one 64-byte record, in emission order
+    scratch = torch.empty((total_emit, 16), dtype=torch.float32, device=dev)
+    d = torch.empty((P.NUM_REC_ROWS, n), dtype=torch.float32, device=dev)
+    SEGMENT_SUMS.launch(
+        g.data_ptr(), mp, perm.data_ptr(), lo.data_ptr(), hi.data_ptr(), n,
+        total_emit, GRAD_ROWS_MASK, scratch.data_ptr(), d.data_ptr(),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    return d
+
+
+def gather_pairs_backward(g: torch.Tensor, perm: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor, n: int,
+                          total_emit: int) -> torch.Tensor:
+    """``gather_pairs_backward_reference``'s function through kernel G1 for
+    a gradient on the card, the plain version for one on the CPU.
+    ``total_emit`` is the emitted prefix of the sorted pairs, which holds
+    every block: perm[:total_emit] is a permutation of [0, total_emit)."""
+    if g.is_cuda:
+        return _gather_pairs_backward_cuda(g, perm, lo, hi, n, total_emit)
+    return gather_pairs_backward_reference(g, perm, lo, hi, n)
 
 
 def bin_gaussians(
@@ -249,7 +318,7 @@ def bin_gaussians(
     hi = torch.minimum(ends, total_t)
     pair_records = _GatherPairs.apply(records_rank, sorted_rank, perm,
                                       sorted_keys, pair_valid, lo, hi, ntx,
-                                      ts)
+                                      ts, total_emit)
     del perm
 
     return TileBins(

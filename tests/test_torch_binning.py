@@ -1,7 +1,11 @@
 """Port vs JAX package: bin_gaussians on the same JAX-projected gaussians.
 
 Integers exactly equal (tile_starts, tile_counts, group_starts, num_pairs,
-overflowed, pair_rank, pair_valid); pair_records within atol 1e-6.
+overflowed, pair_rank, pair_valid); pair_records within atol 1e-6. On the
+CPU the gather's backward is the plain version (the two-level running sum
+of ``_segment_sums``), held against the JAX package's gather VJP; the
+invariant that kernel G1 relies on on the card (the emitted prefix of the
+tile sort is a permutation of itself) holds in every case.
 """
 
 import dataclasses
@@ -9,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from intro_to_gaussian_splatting_tpu.config import (
     CompatConfig,
@@ -17,25 +22,24 @@ from intro_to_gaussian_splatting_tpu.config import (
 from intro_to_gaussian_splatting_tpu.ops import binning as jb
 from intro_to_gaussian_splatting_tpu.ops.projection import project_gaussians
 from intro_to_gaussian_splatting_tpu_torch.ops import binning as tb
+from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
+from intro_to_gaussian_splatting_tpu_torch.ops import projection as tp
+from tests import binning_cases
 from tests.scenes import small_scene
-from tests.test_torch_common import np_, port_config, port_projection
+from tests.test_torch_common import (
+    jax_fast,
+    np_,
+    port_config,
+    port_projection,
+)
 
-BASE = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
-
-SCENE = dict(n=150, width=72, height=40, seed=12)
-CASES = {
-    "default": (SCENE, BASE),
-    # a tiny pool: whole gaussians drop far-to-near
-    "overflow": (SCENE, dataclasses.replace(BASE, pairs_per_gaussian=1)),
-    "inclusive_overlap": (SCENE, dataclasses.replace(
-        BASE, compat=CompatConfig.REFERENCE_CUDA)),
-    # large splats clamped to 2 tiles per axis; odd group padding
-    "max_span": (dict(SCENE, seed=14, scale_lo=0.3, scale_hi=0.8),
-                 dataclasses.replace(BASE, max_span=2, group_tiles=3,
-                                     groups_per_step=2)),
-}
+CASES = {case: (scene, binning_cases.config(case, RasterizerConfig,
+                                            CompatConfig))
+         for case, (scene, _) in binning_cases.CASES.items()}
 # jitted: the eager op-by-op run is several times slower on the CPU
 jax_bin = jax.jit(jb.bin_gaussians, static_argnums=(1, 2, 3))
+# the projection's fields that carry a gradient into the records
+GRAD_FIELDS = ("mean2d", "conic", "opacity", "color", "depth")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -74,3 +78,90 @@ def test_grid_helpers_match():
         assert tb.num_groups_for(nt, port_config(cfg)) == \
             jb.num_groups_for(nt, cfg)
     assert tb.round_up(209452, 128) == jb.round_up(209452, 128)
+
+
+def _port_bins(case):
+    """The JAX-projected scene of ``CASES[case]``, binned by the port with
+    the projection's gradient fields as leaves: (JAX projection, leaves,
+    bins, the gather's autograd node, config, camera)."""
+    scene_kw, cfg = CASES[case]
+    _, cam, model = small_scene(**scene_kw)
+    proj = project_gaussians(model, cam, cfg)
+    port = port_projection(proj)
+    leaves = {f: getattr(port, f).requires_grad_(True) for f in GRAD_FIELDS}
+    bins = tb.bin_gaussians(dataclasses.replace(port, **leaves), cam.width,
+                            cam.height, port_config(cfg))
+    return proj, leaves, bins, bins.pair_records.grad_fn, cfg, cam
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_emitted_prefix_is_a_permutation(case):
+    """What G1 relies on: the tile sort's perm[:total_emit] is a
+    permutation of [0, total_emit), every sorted slot from total_emit on
+    holds the sentinel key, and every block [lo, hi) lies in the prefix.
+    G1's function, the emitted gradients moved to emission order and each
+    block summed, is then the plain version's."""
+    _, _, bins, node, cfg, cam = _port_bins(case)
+    perm, lo, hi = node.saved_tensors
+    total = node.total_emit
+    mp = bins.pair_records.shape[1]
+    assert perm.shape == (mp,) and 0 < total < mp
+    assert torch.equal(torch.sort(perm[:total]).values, torch.arange(total))
+    ntx, nty = tb.tile_grid(cam.width, cam.height, cfg.tile_size)
+    sentinel = tb.num_groups_for(ntx * nty, cfg) * cfg.group_tiles
+    keys = bins.pair_records[tp.REC_TILE].detach().long()  # f32-exact ids
+    assert bool((keys[total:] == sentinel).all())
+    assert bool((keys[:total] < ntx * nty).all())
+    assert bool((lo <= hi).all()) and int(hi.max()) == total
+    assert total == int(bins.num_pairs) or bool(bins.overflowed)
+    # G1's function in float64
+    g = torch.randn((tp.NUM_REC_ROWS, mp),
+                    generator=torch.Generator().manual_seed(4))
+    want = binning_cases.emission_sums(g, perm, lo, hi, total)
+    others = [r for r in range(tp.NUM_REC_ROWS) if r not in tp.GRAD_ROWS]
+    want[others] = 0.0
+    got = tb.gather_pairs_backward_reference(g, perm, lo, hi, lo.shape[0])
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_backward_on_cpu_matches_jax_vjp(case, monkeypatch):
+    """On the CPU ``_GatherPairs.backward`` takes the plain version, once
+    through ``_segment_sums`` and never through G1 (nothing built or
+    launched), and its gradient is the JAX package's gather VJP, for a
+    cotangent that, as the rasterizer backward's, is zero outside the
+    gradient rows."""
+    def no_build(*args):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    plain = tb._segment_sums
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    monkeypatch.setattr(tb, "_segment_sums", counted)
+    launches = tb.SEGMENT_SUMS.launches
+    proj, leaves, bins, _, cfg, cam = _port_bins(case)
+    rng = np.random.default_rng(5)
+    w = np.zeros(tuple(bins.pair_records.shape), np.float32)
+    w[list(tp.GRAD_ROWS)] = rng.normal(size=(len(tp.GRAD_ROWS),
+                                             w.shape[1]))
+    got = torch.autograd.grad(bins.pair_records, list(leaves.values()),
+                              torch.from_numpy(w))
+    assert len(calls) == 1 and tb.SEGMENT_SUMS.launches == launches
+
+    def vjp(fields, w):
+        _, back = jax.vjp(lambda f: jb.bin_gaussians(
+            dataclasses.replace(proj, **f), cam.width, cam.height,
+            cfg).pair_records, fields)
+        return back(w)[0]
+
+    want = jax_fast(vjp, {f: getattr(proj, f) for f in GRAD_FIELDS}, w)
+    # both round in float32, in other orders: a gaussian's sum of up to
+    # 160 unit-scale terms parts by about 1e-5 (at most 1e-5 seen)
+    for f, g in zip(GRAD_FIELDS, got):
+        np.testing.assert_allclose(np_(g), np.asarray(want[f]), rtol=1e-5,
+                                   atol=5e-5, err_msg=f)

@@ -17,9 +17,13 @@ Tolerances: B1 rtol 1e-4 / atol 1e-5 (kernel and plain version round alike,
 through conv2d), B3's value and MSE and B4a's value rel 1e-5; B4c against
 B4a and B4b, value rel 1e-6 and gradient relative L2 1e-5; the relayouts
 and P1 exactly equal; P2 relative L2 1e-6 (its three payload sums taken
-in another order). Every kernel's output is the same bit for bit from one
+in another order); G1 relative L2 1e-5 against its plain version (direct
+sums against differences of running sums), and no further than it from
+the float64 sums. Every kernel's output is the same bit for bit from one
 launch to the next.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +40,7 @@ from intro_to_gaussian_splatting_tpu_torch.models import (
     make_camera,
 )
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import PARAM_NAMES
+from intro_to_gaussian_splatting_tpu_torch.ops import binning as tb
 from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
 from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
 from intro_to_gaussian_splatting_tpu_torch.ops import probe as tp
@@ -53,6 +58,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
 )
 from intro_to_gaussian_splatting_tpu_torch.ops.render import render
 from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
+from tests import binning_cases
 
 CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
 # kernel and plain version round alike (-fmad=false); the tolerance is the
@@ -115,7 +121,7 @@ def _bins(case, device, cfg=None):
 
 KERNELS = (tr.RASTERIZE_FWD, tr.RASTERIZE_BWD, tf.FUSED_LOSS, tl.UNTILE_CHW,
            tl.TILE_CHW, ts.SSIM_SUM, ts.SSIM_GRAD, ts.SSIM_VALUE_GRAD,
-           tp.PROBE_ZERO, tp.PROBE_WINDOW)
+           tp.PROBE_ZERO, tp.PROBE_WINDOW, tb.SEGMENT_SUMS)
 
 
 def rel_l2(got, want):
@@ -174,9 +180,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 def test_kernel_build_flags():
     sources = (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
                tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
-               ts.SSIM_SOURCE, tp.SOURCE)
+               ts.SSIM_SOURCE, tp.SOURCE, tb.SEGMENT_SUMS_SOURCE)
     assert [k.source for k in KERNELS] == (
-        list(sources[:-1]) + [ts.SSIM_SOURCE] * 2 + [tp.SOURCE] * 2)
+        list(sources[:-2]) + [ts.SSIM_SOURCE] * 2 + [tp.SOURCE] * 2
+        + [tb.SEGMENT_SUMS_SOURCE])
     for src in sources:
         assert src.path.is_file()
         flags = cuda_build.NVCC_FLAGS + src.extra_flags
@@ -184,9 +191,7 @@ def test_kernel_build_flags():
         assert "--use_fast_math" not in flags
         assert "__expf(" not in src.path.read_text()
         assert src.library().name.startswith(f"lib{src.name}-")
-    for src in (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
-                tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
-                ts.SSIM_SOURCE, tp.SOURCE):
+    for src in sources:
         assert "-fmad=false" in src.extra_flags
         assert "atomicAdd" not in src.path.read_text()
 
@@ -505,6 +510,85 @@ def test_train_step_gradients_on_card(cuda_device):
     for name in grads:
         assert rel_l2(grads[name], cpu_grads[name]) <= 1e-4, name
         assert torch.equal(grads[name], grads2[name]), name
+
+
+def _g1_bins(case, device, pairs_per_gaussian=None):
+    """The scene of ``binning_cases.CASES[case]`` made and binned on
+    ``device`` (at ``pairs_per_gaussian`` if given), the projection's
+    gradient fields as leaves: (leaves, bins, the gather's autograd node,
+    which holds perm, lo, hi and total_emit)."""
+    kw, _ = binning_cases.CASES[case]
+    kw = dict(kw)
+    scales = (kw.pop("scale_lo", 0.02), kw.pop("scale_hi", 0.25))
+    cfg = binning_cases.config(case, RasterizerConfig, CompatConfig)
+    if pairs_per_gaussian:
+        cfg = dataclasses.replace(cfg, pairs_per_gaussian=pairs_per_gaussian)
+    model, cam = _scene(device, scales=scales, **kw)
+    with torch.no_grad():
+        proj = project_gaussians(model, cam, cfg)
+    leaves = {f: getattr(proj, f).requires_grad_(True)
+              for f in ("mean2d", "conic", "opacity", "color", "depth")}
+    bins = bin_gaussians(dataclasses.replace(proj, **leaves), cam.width,
+                         cam.height, cfg)
+    return leaves, bins, bins.pair_records.grad_fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(binning_cases.CASES))
+def test_g1_kernel_matches_plain_on_card(case, cuda_device):
+    """G1, the gather's backward, against the float64 block sums and its
+    plain version (the library chain) on the card: no further from the
+    exact sums than the plain version (or within 1e-6), within relative L2
+    1e-5 of it, exact zeros outside the gradient rows and for gaussians
+    with no pairs (``overflow`` drops whole ones), bit for bit the same on
+    repeat and for the same pairs in a pool twice the size, one launch per
+    backward pass. The cotangent holds values in every row and in the
+    sentinel slots, which G1 never reads."""
+    leaves, bins, node = _g1_bins(case, cuda_device)
+    perm, lo, hi = node.saved_tensors
+    total, n, mp = node.total_emit, lo.shape[0], perm.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    g = torch.randn((16, mp), generator=gen, device=cuda_device)
+    d = tb.gather_pairs_backward(g, perm, lo, hi, n, total)
+    plain = tb.gather_pairs_backward_reference(g, perm, lo, hi, n)
+    exact = binning_cases.emission_sums(g, perm, lo, hi, total)
+    rows = list(GRAD_ROWS)
+    err = rel_l2(d[rows], exact[rows])
+    assert err <= max(rel_l2(plain[rows], exact[rows]), 1e-6), err
+    assert rel_l2(d, plain) <= 1e-5
+    others = [r for r in range(16) if r not in GRAD_ROWS]
+    assert not d[others].any() and not d[:, lo == hi].any()
+    if case == "overflow":
+        assert bool((lo == hi).any())
+    if case == "wide":      # lanes walk more than one pair each
+        assert int((hi - lo).max()) > 64
+    assert torch.equal(d, tb.gather_pairs_backward(g, perm, lo, hi, n,
+                                                   total))
+
+    # the same pairs in a larger pool: each emission slot's gradient the
+    # same values, wherever the sort puts it
+    g_em = torch.randn((16, 2 * mp), generator=gen, device=cuda_device)
+    sums = []
+    ppg = binning_cases.CASES[case][1]["pairs_per_gaussian"]
+    for pool_ppg in (ppg, 2 * ppg):
+        _, b, nd = _g1_bins(case, cuda_device, pool_ppg)
+        p, l, h = nd.saved_tensors
+        gp = torch.randn((16, p.shape[0]), generator=gen, device=cuda_device)
+        gp[:, :nd.total_emit] = g_em[:, p[:nd.total_emit]]
+        sums.append((tb.gather_pairs_backward(gp, p, l, h, n, nd.total_emit),
+                     l, h, b.pair_records.shape[1]))
+    (d1, l1, h1, mp1), (d2, l2, h2, mp2) = sums
+    same = (l1 == l2) & (h1 == h2)
+    assert mp2 > mp1 and bool(same.any())
+    assert bool(same.all()) or case == "overflow"
+    assert torch.equal(d1[:, same], d2[:, same])
+
+    # through autograd: one launch per backward pass, bit for bit equal
+    before = tb.SEGMENT_SUMS.launches
+    grads = [torch.autograd.grad(bins.pair_records, list(leaves.values()),
+                                 g, retain_graph=True) for _ in range(2)]
+    assert tb.SEGMENT_SUMS.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def _ssim_images(device, h, w, seed):
