@@ -15,14 +15,6 @@ JAX, and prints one JSON line per phase:
                   build of all eleven kernels (one nvcc per source, started
                   together) and ptxas's register / shared-memory / spill
                   report;
-  small           a small seeded scene rendered on the card against the
-                  port's dense oracle on the card and the CPU path;
-  small_train     one default training step's loss and gradients on the
-                  card against the CPU path (plain versions), and two
-                  backward passes on the card bit for bit equal;
-  small_train_split  the same with ``TrainConfig(fused_loss=False)`` (tile
-                  L1, B5-untile, the fused SSIM B4a; back through B4b,
-                  B5-tile and B2);
   small_batched   ``train_step_batched`` over two cameras on the card: its
                   Adam step is on the mean of the two cameras' gradients;
   small_trainer   six steps of ``Trainer.run`` on the card, that scene in a
@@ -43,21 +35,16 @@ JAX, and prints one JSON line per phase:
                   timed, the CUDA-event ms beside it, as for every B1-B4
                   row; B5-untile and its library call timed in turns,
                   torch.profiler's device durations with the CUDA-event
-                  figures beside them, bytes and GB/s), bounds (B1's
-                  counting the pairs up to each tile's last exit, the
-                  figure over all pairs beside it), plain and
-                  library times; the whole ``render_tiled`` on a host clock,
-                  its stages, and one call under torch.profiler; at
-                  ref_init also ``render_tiled`` at ``group_tiles=1``
-                  (65,936 groups) exactly equal to the default render;
+                  figures beside them, bytes and GB/s), bounds, plain and
+                  library times; at ref_init also ``render_tiled`` at
+                  ``group_tiles=1`` (65,936 groups) exactly equal to the
+                  default render;
   train_ref_init  ten ``train_step``s at that scene (bench.py's gradient
                   target, ``TrainConfig()``), every launch count set to 0
                   just before and read just after: per step loss, PSNR and
                   launches of B1, B2, B3 and G1; step time on a host clock
                   around synchronised steps (mean of steps 2-10) and as
-                  Mpix/s; stage times; one step under torch.profiler (its
-                  kernel ms, idle share and each port kernel's ms); peak
-                  memory;
+                  Mpix/s; peak memory;
   train_knn_init  the same at the KNN init and the dense pool; both also
                   time one densify + prune pass (``Trainer._densify_and_
                   prune``) after their steps, host ms between two
@@ -127,7 +114,7 @@ JAX, and prints one JSON line per phase:
                   gathered gradients equal to the 1x1 mesh's; with one card
                   a line that says it did not run, and why;
   cli_small       ``cli.main`` in-process on a small synthetic scene: info,
-                  train, train --resume, eval, points, bench and train
+                  train, train --resume, eval, points and train
                   --multihost in a world of one rank, on the card;
   native          the port's host C++ (utils/native.py), built with g++:
                   the scalar CPU oracle on the small scene's depth-sorted
@@ -153,7 +140,13 @@ JAX, and prints one JSON line per phase:
                   and the curve.
 
 Every phase line carries ``phase_seconds``, the seconds since the line
-before it.
+before it. A kernel row's bound is the larger of its bytes over the HBM
+rate and its operations over the float32 rate, the peaks of
+``gsbench/counts.py``; B1, B2, B3 and B5-untile take their bytes and
+operations from the counts there too, fed this run's own counts of the
+scene (evaluations, pairs read, emitted pairs, tiles with pairs). The
+stages of a training step or a view, and their idle time, are the
+benchmark's to read from the program's spans (``gsbench/``).
 
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
@@ -184,24 +177,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "intro_to_gaussian_splatting_tpu_torch"
 
-# Operations kernel B1 does per (pair, pixel) evaluation: dx, dy (2), the
-# conic quadratic (9), the -0.5 scale (1), expf (1), opacity (1), clamp (2),
-# 1 - a (1), T * (1 - a) (1), the threshold test (1), T * a (1) and five
-# multiply-adds into the accumulators (10).
-B1_OPS_PER_EVALUATION = 30
 # Pair counts the JAX package gives on the same inputs (its bench.py).
 JAX_PAIRS = {"ref_init": 81513, "knn_init": 29146684}
-
-# Operations kernel B2 does per (pair, pixel) evaluation: the alpha terms
-# as B1 (15), the threshold test (2), W and gc (11), prefix, suffix and da
-# (6), the clamp mask (3), dalpha, dq (4), the six geometry terms (19), the
-# four payload terms (4), and 10 adds into the pair's sums over its pixels.
-B2_OPS_PER_EVALUATION = 74
-# Operations kernel B3 does per pixel and channel: x^2, y^2, xy (3); the
-# five 11-tap blurs down and along (2 x 5 x 21); the SSIM terms (22) and
-# the three window coefficients (15); the three adjoint blurs along and
-# down (2 x 3 x 21); the gradient, L1 and MSE terms (14).
-B3_OPS_PER_PIXEL = 3 + 2 * 5 * 21 + 22 + 15 + 2 * 3 * 21 + 14
 
 B1_REPLACES = "intro_to_gaussian_splatting_tpu/ops/rasterize_pallas.py:220"
 B2_REPLACES = "intro_to_gaussian_splatting_tpu/ops/rasterize_pallas.py:333"
@@ -212,26 +189,14 @@ B4A_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:104"
 B4B_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:156"
 B4C_REPLACES = "intro_to_gaussian_splatting_tpu/ops/ssim_pallas.py:210"
 
-# Operations kernel B4a does per pixel and channel, counted as B3's: x^2,
-# y^2, xy (3); the five 11-tap blurs down and along (2 x 5 x 21); the SSIM
-# terms (22). B4b adds the three window coefficients (15), the three
-# adjoint blurs along and down (2 x 3 x 21) and the gradient (6); B4c adds
-# the value (1).
+# Operations kernel B4a does per pixel and channel, counted as
+# gsbench/counts.py counts B3's: x^2, y^2, xy (3); the five 11-tap blurs
+# down and along (2 x 5 x 21); the SSIM terms (22). B4b adds the three
+# window coefficients (15), the three adjoint blurs along and down
+# (2 x 3 x 21) and the gradient (6); B4c adds the value (1).
 B4A_OPS_PER_PIXEL = 3 + 2 * 5 * 21 + 22
 B4B_OPS_PER_PIXEL = B4A_OPS_PER_PIXEL + 15 + 2 * 3 * 21 + 6
 B4C_OPS_PER_PIXEL = B4B_OPS_PER_PIXEL + 1
-
-# The port's kernels by a substring of their names in a profile: each
-# profiled step and render reports the ms and launches of each
-PORT_KERNELS = {
-    "B1": "rasterize_fwd_kernel", "B2": "rasterize_bwd_kernel",
-    "B3": "fused_loss_kernel", "B4a": "ssim_sum_kernel",
-    "B4b/c": "ssim_grad_kernel", "B5-untile": "::untile_chw_kernel",
-    "B5-tile": "::tile_chw_kernel", "G1": "segment_sums_kernel",
-}
-# Record rows B1 reads per pair: mean, conic, opacity and the 5 payload
-# rows; 4 more with the pixel-bbox test
-B1_ROWS, B1_BBOX_ROWS = 11, 15
 
 # Steps of the train_curve phase: the port's script at its defaults.
 TRAIN_CURVE_STEPS = 600
@@ -264,32 +229,12 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def stage_times(torch, model, cam, cfg, ntx, nty, ng, project_gaussians,
-                bin_gaussians, R, L, reps: int = 3) -> dict:
-    """Host-clock ms of each stage of render_tiled, synchronised after each
-    (mean of ``reps`` runs): where the time of one render goes."""
-    names = ("project", "bin", "B1 rasterize", "B5 untile + permute")
-    sums = dict.fromkeys(names, 0.0)
-    with torch.no_grad():
-        for _ in range(reps):
-            marks = [time.perf_counter()]
-            proj = project_gaussians(model, cam, cfg)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            bins = bin_gaussians(proj, cam.width, cam.height, cfg)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            tiles = R.rasterize_pairs(bins.pair_records, bins.tile_starts,
-                                      bins.tile_counts, ng, cfg)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            L.untile_chw_fast(tiles, ntx, nty, cfg.tile_size, cam.height,
-                              cam.width).permute(1, 2, 0).contiguous()
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            for name, a, b in zip(names, marks, marks[1:]):
-                sums[name] += (b - a) * 1e3 / reps
-    return sums
+def bound_of(M, nbytes, ops):
+    """(ms, binding resource): ``gsbench/counts.py``'s least time for
+    ``nbytes`` and ``ops`` float32 operations, and which of the two sets
+    it."""
+    t_bytes, t_ops = M.K.bound_ms(nbytes, 0), M.K.bound_ms(0, ops)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def in_turns(M, kernel, library, per_turn=15):
@@ -425,46 +370,6 @@ def gradient_target(np, width: int, height: int):
         (height, width, 3)).copy()
 
 
-def train_stage_times(torch, M, model, cam, target, cfg, tcfg, tx, opt_state,
-                      dstate, reps: int = 3):
-    """Host-clock ms of each stage of one train_step, synchronised after
-    each (mean of ``reps`` steps; the model keeps training)."""
-    names = ("render (project, bin, B1)", "loss (B3)",
-             "backward (B2, gather, projection)", "optimizer (Adam)",
-             "densify accumulate")
-    sums = dict.fromkeys(names, 0.0)
-    h, w = cam.height, cam.width
-    ntx, nty = M.tile_grid(w, h, cfg.tile_size)
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        marks = [time.perf_counter()]
-        probe = torch.zeros((model.capacity, 2), device="cuda",
-                            requires_grad=True)
-        tiles, aux = M.R.render_tiles(model, cam, cfg, return_aux=True,
-                                      mean2d_offset=probe)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        loss, _ = M.FL.fused_photometric_loss(tiles, target, ntx, nty,
-                                              cfg.tile_size, h, w,
-                                              tcfg.ssim_weight)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        inputs = [getattr(model, n) for n in M.PARAM_NAMES] + [probe]
-        grads = dict(zip(M.PARAM_NAMES + ("probe",),
-                         torch.autograd.grad(loss, inputs)))
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        opt_state = tx.step(model, grads, opt_state)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        dstate = M.D.accumulate(dstate, grads["probe"], aux["visible"])
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        for name, a, b in zip(names, marks, marks[1:]):
-            sums[name] += (b - a) * 1e3 / reps
-    return sums, opt_state, dstate
-
-
 def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
               after=None):
     """The main path of a training variant: ``steps`` calls of ``step()``
@@ -473,8 +378,8 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
     of ``expect`` ({symbol: launches}) exactly that often, the loss must
     fall and the parameters stay finite. Emits the phase line (step ms on a
     host clock, mean of steps 2 on; Mpix/s; the fields ``after()`` returns,
-    called after the steps; one step under torch.profiler; peak memory over
-    the steps) and returns the launch totals by symbol and the step ms."""
+    called after the steps; peak memory over the steps) and returns the
+    launch totals by symbol and the step ms."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in M.ALL_KERNELS:
@@ -500,12 +405,10 @@ def run_steps(torch, M, phase, step, model, expect, steps, mpix, card,
                  for n in M.PARAM_NAMES)
     step_ms = sum(secs[1:]) / len(secs[1:]) * 1e3
     extra = after() if after else {}
-    profile = M.U.device_profile(step, PORT_KERNELS)
     emit(phase, gaussians=model.capacity, steps=rows,
          launches_in_run=launches, step_ms_mean_2_on=step_ms,
          train_step_mpix_per_s=mpix / (step_ms / 1e3), **extra,
-         device_profile=profile, max_memory_allocated=peak,
-         params_finite=finite, card=card)
+         max_memory_allocated=peak, params_finite=finite, card=card)
     check(all(r["launches"] == expect for r in rows),
           f"{phase}: a step did not launch {expect}: {rows}")
     check(finite and all(math.isfinite(r["loss"]) for r in rows),
@@ -521,8 +424,7 @@ def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
     ``train_step_batched``) on ``model`` per call, from a fresh Adam and
     densify state kept in ``state``: returns (step, state)."""
     tx = M.T.make_optimizer(tcfg, 10.0)
-    state = {"tx": tx,
-             "opt": tx.init({n: getattr(model, n) for n in M.PARAM_NAMES}),
+    state = {"opt": tx.init({n: getattr(model, n) for n in M.PARAM_NAMES}),
              "densify": M.D.DensifyState.zero(model.capacity, "cuda")}
 
     def step():
@@ -537,25 +439,17 @@ def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
 def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
     """The training main path: ``steps`` train_steps of the default
     TrainConfig, each launching B1, B2, B3 and G1 once (``run_steps``), then
-    the stage times of three more. Returns the launch totals by kernel and
-    the step ms."""
-    tcfg = M.TrainConfig()
+    one densify + prune pass. Returns the launch totals by kernel and the
+    step ms."""
     step, state = make_step(M, M.T.train_step, model, cam,
-                            (None, None, target), cfg, tcfg)
-
-    def stages():
-        sums, state["opt"], state["densify"] = train_stage_times(
-            torch, M, model, cam, target, cfg, tcfg, state["tx"],
-            state["opt"], state["densify"])
-        return dict(stages_host_ms=sums,
-                    densify_pass=densify_pass(torch, M, model,
-                                              state["densify"], cam))
-
+                            (None, None, target), cfg, M.TrainConfig())
     launches, step_ms = run_steps(
         torch, M, f"train_{scene}", step, model,
         {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1,
          "segment_sums": 1}, steps,
-        cam.width * cam.height / 1e6, card, after=stages)
+        cam.width * cam.height / 1e6, card,
+        after=lambda: dict(densify_pass=densify_pass(
+            torch, M, model, state["densify"], cam)))
     return ({"B2": launches["rasterize_bwd"], "B3": launches["fused_loss"]},
             step_ms)
 
@@ -657,7 +551,7 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
                                cfg)
         args = (bins.pair_records, bins.tile_starts, bins.tile_counts)
         out = R.rasterize_pairs(*args, ng, cfg)
-        _, evaluations, _ = R.rasterize_pairs_reference(
+        _, evaluations, pairs_read = R.rasterize_pairs_reference(
             *args, ng, cfg, count_evaluations=True)
         loss_args = (out, target, ntx, nty, ts, h, w, 0.2)
         loss, mse, g_tile = FL._fused_loss_cuda(*loss_args)
@@ -712,22 +606,15 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
             0, 1, 3, 2, 4).contiguous())
     del padded
 
-    out_bytes = out.numel() * 4
-    mp = bins.pair_records.shape[1]
-    # records read (64 B per emitted pair), tile ranges, the output and its
-    # cotangent read for the tiles that have pairs, the (16, MP) gradient
-    # written
-    nonempty = int((bins.tile_counts > 0).sum())
-    b2_bound, b2_by = M.U.bound(
-        64 * num_pairs + 8 * ntx * nty
-        + 2 * nonempty * R.OUT_CHANNELS * ts * ts * 4 + 64 * mp,
-        B2_OPS_PER_EVALUATION * evaluations)
-    # three channels of the tiles and the target read, the gradient written
-    b3_bound, b3_by = M.U.bound(
-        out_bytes * 3 // R.OUT_CHANNELS + 3 * h * w * 4 + out_bytes,
-        B3_OPS_PER_PIXEL * 3 * h * w)
-    b5_bytes = 3 * h * w * 4 + out_bytes
-    b5_bound, b5_by = M.U.bound(b5_bytes, 0)
+    work = dict(evaluations=evaluations, pairs_read=pairs_read,
+                pairs=num_pairs,
+                nonempty_tiles=int((bins.tile_counts > 0).sum()))
+    b2_bound, b2_by = bound_of(M, *M.K.b2(work, ntx * nty, ts))
+    b3_bound, b3_by = bound_of(M, *M.K.b3(w, h))
+    # B5-tile (no count in gsbench/counts.py): the image read, the
+    # (groups, 5, ...) tiles written
+    b5_bytes = 3 * h * w * 4 + out.numel() * 4
+    b5_bound, b5_by = bound_of(M, b5_bytes, 0)
     reason = ("no single PyTorch call computes this function; its plain "
               "version is a composition of many")
     rows = [
@@ -753,7 +640,7 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     ]
     emit(f"train_kernels_{scene}", kernels=rows, num_pairs=num_pairs,
          b2_rel_l2_per_row=b2_err, b2_exact_zeros=b2_zero,
-         b2_bit_equal_on_repeat=b2_repeat, b2_evaluations=evaluations,
+         b2_bit_equal_on_repeat=b2_repeat, b2_work=work,
          b3_loss=float(loss), b3_loss_rel_err=b3_loss_err,
          b3_mse_rel_err=b3_mse_err, b3_grad_rel_l2=b3_grad_err,
          b5_tile_exactly_equal=b5_equal,
@@ -829,7 +716,7 @@ def g1_kernel(torch, M, model, cam, card):
     plain_ms = M.U.cuda_ms(lambda: B.gather_pairs_backward_reference(*args),
                            iters=3)
     nbytes = 48 * total + 80 * n
-    bound, by = M.U.bound(nbytes, 0)
+    bound, by = bound_of(M, nbytes, 0)
     pairs = (hi - lo)[~empty]
     row = dict(name="G1 segment_sums", route="cuda",
                source=f"{PACKAGE}/csrc/segment_sums.cu",
@@ -957,9 +844,9 @@ def ssim_kernels(torch, M, height, width, card):
     px = 3 * height * width
     # B4a reads the two images; B4b and B4c read them and write the
     # prediction's gradient
-    b4a_bound, b4a_by = M.U.bound(2 * px * 4, B4A_OPS_PER_PIXEL * px)
-    b4b_bound, b4b_by = M.U.bound(3 * px * 4, B4B_OPS_PER_PIXEL * px)
-    b4c_bound, b4c_by = M.U.bound(3 * px * 4, B4C_OPS_PER_PIXEL * px)
+    b4a_bound, b4a_by = bound_of(M, 2 * px * 4, B4A_OPS_PER_PIXEL * px)
+    b4b_bound, b4b_by = bound_of(M, 3 * px * 4, B4B_OPS_PER_PIXEL * px)
+    b4c_bound, b4c_by = bound_of(M, 3 * px * 4, B4C_OPS_PER_PIXEL * px)
     rows = [
         dict(name="B4a ssim_sum", route="cuda",
              source=f"{PACKAGE}/csrc/ssim.cu", replaces=B4A_REPLACES,
@@ -1086,10 +973,10 @@ def probes(torch, np, M, card):
     np.add.at(cover, np.minimum(astart[live] + P.G * nchunks[live], P.MP),
               -1)
     rows_read = int((np.cumsum(cover)[:P.MP] > 0).sum())
-    p1_bound, p1_by = U.bound(out_bytes, 0)
+    p1_bound, p1_by = bound_of(M, out_bytes, 0)
     elements = P.G * P.PIX * int(nchunks.sum())
-    p2_bound, p2_by = U.bound(
-        out_bytes + 8 * nt + 4 * P.REC_COLS * rows_read,
+    p2_bound, p2_by = bound_of(
+        M, out_bytes + 8 * nt + 4 * P.REC_COLS * rows_read,
         P.P2_OPS_PER_ELEMENT * elements)
     p2_sass = p2_issue_floor(torch, M, elements)
     source = f"{PACKAGE}/csrc/probe.cu"
@@ -1241,21 +1128,6 @@ def eval_run(torch, M, model, cams, targets, tmp, card):
                             device="cuda")
         ply_err = float((R.render_tiled(back, cams[0], cfg)
                          - R.render_tiled(model, cams[0], cfg)).abs().max())
-        # where one view's time goes: host clock, the card synchronised
-        # (psnr and ssim of the last view's image and target)
-        names = ("target to the card", "render_tiled and clip", "psnr",
-                 "ssim")
-        marks = [time.perf_counter()]
-        for stage in (
-                lambda: torch.as_tensor(targets[0], device="cuda"),
-                lambda: torch.clamp(R.render_tiled(model, cams[0], cfg),
-                                    0.0, 1.0),
-                lambda: LS.psnr(img, t), lambda: LS.ssim(img, t)):
-            stage()
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-        stages = {k: (b - a) * 1e3 for k, a, b in zip(names, marks,
-                                                      marks[1:])}
     errs = [dict(psnr=abs(r["psnr"] - p) / abs(p),
                  ssim=abs(r["ssim"] - s) / abs(s))
             for r, (p, s) in zip(rows, recomputed)]
@@ -1263,7 +1135,7 @@ def eval_run(torch, M, model, cams, targets, tmp, card):
     emit("eval_ref_init", views=n, width=cams[0].width,
          height=cams[0].height, rows=rows, recomputed=recomputed,
          rel_err_vs_recomputed=errs, launches=launches, eval_ms=eval_ms,
-         ms_per_view=eval_ms / n, view_stages_host_ms=stages,
+         ms_per_view=eval_ms / n,
          ply_bytes=os.path.getsize(path),
          ply_export_ms=export_ms, ply_round_trip_render_max_abs=ply_err,
          tolerance="PSNR/SSIM rel 1e-6; PLY round trip max abs 1e-6",
@@ -1552,7 +1424,7 @@ def cli_run(torch, M, tmp, card):
     truth (300 points, 3 cameras, 64x48, its images rendered on the card):
     info, train (12 steps, holdout 3, checkpoints, eval at the end),
     train --resume to 18, eval with saved renders, points against the
-    stored keypoints, bench, and train --multihost in a world of one
+    stored keypoints, and train --multihost in a world of one
     rank (NCCL, 6 steps through the mesh path). Each must exit 0 and each
     but info (which only reads the model files) print device=cuda; the
     training loss falls, the artifacts appear, the resume continues from
@@ -1579,7 +1451,6 @@ def cli_run(torch, M, tmp, card):
                  "--save-renders", renders],
         "points": ["points", scene, "-o", os.path.join(out, "points.ppm"),
                    "--compare-keypoints"],
-        "bench": ["bench", scene, "--iters", "3"],
         "train_multihost": [
             "train", scene, "--multihost", "--coordinator",
             f"127.0.0.1:{free_port()}", "--num-processes", "1",
@@ -1621,8 +1492,8 @@ def cli_run(torch, M, tmp, card):
               for k in ("rasterize_fwd", "rasterize_bwd", "fused_loss")),
           f"cli_small: train launches {results['train']['launches']}")
     check("eval[holdout]" in texts["train"] and "mean" in texts["eval"]
-          and "keypoint overlay" in texts["points"]
-          and "ms/frame" in texts["bench"], "cli_small: missing output")
+          and "keypoint overlay" in texts["points"],
+          "cli_small: missing output")
     mh = results["train_multihost"]["launches"]
     check("multihost: rank 0 of 1" in texts["train_multihost"]
           and all(os.path.exists(os.path.join(out_mh, a)) for a in artifacts)
@@ -1885,12 +1756,13 @@ def main() -> int:
     from intro_to_gaussian_splatting_tpu_torch.parallel import (
         multihost as MH, sharded as SP,
     )
+    from gsbench import counts as K
 
     import numpy as np
 
     M = types.SimpleNamespace(
         B=B, R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E,
-        LS=LS,
+        LS=LS, K=K,
         SP=SP, N=N, TC=TC, CM=CM, cuda_build=cuda_build,
         GaussianModel=GaussianModel, render_dense=render_dense,
         sorted_records=sorted_records, make_colmap_scene=make_colmap_scene,
@@ -1916,7 +1788,9 @@ def main() -> int:
          build_s=build_s,
          ptxas={src.name: cuda_build.ptxas_report(src) for src in sources})
 
-    # -- small seeded scene: card against the dense oracle and the CPU path
+    # -- small seeded scenes: 400 gaussians of 0.02-0.25 (the host C++
+    # phase), 200 of 0.08-0.3 with a target (the batched step, the Trainer
+    # and the mesh Trainer)
     rng = np.random.default_rng(3)
     n, w, h = 400, 48, 32
     qvec, tvec = ring_cameras(1, w, h, radius=5.0, z=1.0, seed=3)[0]
@@ -1941,31 +1815,6 @@ def main() -> int:
             active=torch.ones(n, dtype=torch.bool, device=dev),
             color_space="rgb")
 
-    small = {}
-    for dev in ("cuda", "cpu"):
-        model = small_model(dev)
-        cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, qvec, tvec,
-                          device=dev)
-        with torch.no_grad():
-            small[dev] = render(model, cam, small_cfg, backend="auto").cpu()
-            if dev == "cuda":
-                dense = render_dense(model, cam, small_cfg).cpu()
-    err_dense = float((small["cuda"] - dense).abs().max())
-    err_cpu = float((small["cuda"] - small["cpu"]).abs().max())
-    emit("small", gaussians=n, width=w, height=h,
-         max_abs_vs_dense_oracle=err_dense, max_abs_vs_cpu_path=err_cpu,
-         tolerance="rtol 1e-4, atol 1e-5")
-    check(torch.allclose(small["cuda"], dense, rtol=1e-4, atol=1e-5),
-          "small scene: card render disagrees with the dense oracle")
-    check(torch.allclose(small["cuda"], small["cpu"], rtol=1e-4, atol=1e-5),
-          "small scene: card render disagrees with the CPU path")
-
-    # -- small seeded scene: one default training step's loss and gradients
-    # on the card (B1, B2, B3) against the CPU path (the plain versions),
-    # and two backward passes on the card bit for bit equal. Splats of
-    # 0.08-0.3; the thinner splats of the render check above are reported
-    # too, unchecked: there the quaternion and scale gradients of two f32
-    # projections part by more than the tolerance (PERF.md, Findings).
     rng = np.random.default_rng(11)
     train_arrays = dict(
         means=rng.normal(0.0, 1.2, size=(200, 3)),
@@ -1975,75 +1824,6 @@ def main() -> int:
         opacity_logits=rng.uniform(-2.0, 4.0, size=(200,)))
     target_small = torch.as_tensor(rng.uniform(0.0, 1.0, size=(3, h, w)),
                                    dtype=torch.float32)
-
-    def step_grads(scene_arrays, dev):
-        model = small_model(dev, scene_arrays)
-        cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, qvec, tvec,
-                          device=dev)
-        loss, mse, _, _, grads = T.camera_loss_and_grads(
-            model, cam, None, None, target_small.to(dev), small_cfg,
-            TrainConfig())
-        return loss.cpu(), mse.cpu(), {k: v.cpu() for k, v in grads.items()}
-
-    (loss_c, mse_c, grads_c), (loss_h, mse_h, grads_h), (loss_2, _, grads_2) \
-        = (step_grads(train_arrays, dev) for dev in ("cuda", "cpu", "cuda"))
-    grad_err = {k: rel_l2(torch, grads_c[k], grads_h[k]) for k in grads_h}
-    repeat = all(torch.equal(grads_c[k], grads_2[k]) for k in grads_c)
-    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
-    thin_c, thin_h = (step_grads(arrays, dev)[2] for dev in ("cuda", "cpu"))
-    emit("small_train", loss_card=float(loss_c), loss_cpu=float(loss_h),
-         loss_rel_err=loss_err,
-         mse_rel_err=abs(float(mse_c) - float(mse_h)) / float(mse_h),
-         grad_rel_l2=grad_err,
-         backward_bit_equal_on_repeat=repeat and torch.equal(loss_c, loss_2),
-         tolerance="loss rel 1e-5, gradients relative L2 1e-4",
-         thin_splats_grad_rel_l2_unchecked={
-             k: rel_l2(torch, thin_c[k], thin_h[k]) for k in thin_h})
-    check(loss_err <= 1e-5, "small_train: loss disagrees with the CPU path")
-    check(max(grad_err.values()) <= 1e-4,
-          f"small_train: gradients disagree with the CPU path: {grad_err}")
-    check(repeat, "small_train: two backward passes on the card differ")
-
-    # -- the same scene, one split-loss step (fused_loss=False: tile L1, B5
-    # untile, B4a; back through B4b, B5-tile and B2) on the card against
-    # the CPU path, and bit for bit the same on repeat
-    split_cfg = TrainConfig(fused_loss=False)
-
-    def split_grads(dev):
-        model = small_model(dev, train_arrays)
-        cam = make_camera(0.9 * max(w, h), 0.9 * max(w, h), w, h, qvec, tvec,
-                          device=dev)
-        chw = target_small.to(dev)
-        hwc = chw.permute(1, 2, 0).contiguous()
-        before = {k.symbol: k.launches for k in M.ALL_KERNELS}
-        loss, _, _, _, grads = T.camera_loss_and_grads(
-            model, cam, R.image_to_tiles(hwc, small_cfg),
-            R.tile_pixel_mask(h, w, small_cfg, dev), chw, small_cfg,
-            split_cfg)
-        launched = {k.symbol: k.launches - before[k.symbol]
-                    for k in M.ALL_KERNELS}
-        return loss.cpu(), {k: v.cpu() for k, v in grads.items()}, launched
-
-    (loss_c, grads_c, launched), (loss_h, grads_h, _), (loss_2, grads_2, _) \
-        = (split_grads(dev) for dev in ("cuda", "cpu", "cuda"))
-    grad_err = {k: rel_l2(torch, grads_c[k], grads_h[k]) for k in grads_h}
-    repeat = (all(torch.equal(grads_c[k], grads_2[k]) for k in grads_c)
-              and torch.equal(loss_c, loss_2))
-    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
-    emit("small_train_split", loss_card=float(loss_c),
-         loss_cpu=float(loss_h), loss_rel_err=loss_err,
-         grad_rel_l2=grad_err, backward_bit_equal_on_repeat=repeat,
-         launches=launched,
-         tolerance="loss rel 1e-5, gradients relative L2 1e-4")
-    check(loss_err <= 1e-5,
-          "small_train_split: loss disagrees with the CPU path")
-    check(max(grad_err.values()) <= 1e-4,
-          f"small_train_split: gradients disagree with the CPU path: "
-          f"{grad_err}")
-    check(repeat, "small_train_split: two passes on the card differ")
-    check(launched["ssim_sum"] == launched["ssim_grad"] == 1
-          and launched["fused_loss"] == 0,
-          f"small_train_split: launches {launched}")
 
     # -- train_step_batched on the card: one Adam step on the mean of two
     # cameras' gradients, read back from the first moments (mu = 0.1 g)
@@ -2192,17 +1972,9 @@ def main() -> int:
         b1_plain_ms = M.U.cuda_ms(
             lambda: R.rasterize_pairs_reference(*args), iters=1,
             warmup=0)
-        # the rows B1 reads of the pairs up to each tile's last exit (T is
-        # monotone, so the kernel stops there exactly), the tile ranges,
-        # the output written; beside it the earlier figure, which counted
-        # all 16 rows of every pair
-        b1_rows = B1_BBOX_ROWS if cfg.compat.pixel_bbox_test else B1_ROWS
-        out_bytes = R.OUT_CHANNELS * tiles[0, 0].numel() * ng * 4
-        b1_bytes = 4 * b1_rows * pairs_read + 8 * ntx * nty + out_bytes
-        b1_ops = B1_OPS_PER_EVALUATION * evaluations
-        b1_bound, b1_by = M.U.bound(b1_bytes, b1_ops)
-        b1_bound_all_pairs = M.U.bound(
-            64 * num_pairs + 8 * ntx * nty + out_bytes, b1_ops)[0]
+        b1_bytes, b1_ops = K.b1(dict(evaluations=evaluations,
+                                     pairs_read=pairs_read), ntx * nty, ts)
+        b1_bound, b1_by = bound_of(M, b1_bytes, b1_ops)
         b5_plain_ms = M.U.cuda_ms(lambda: L.untile_chw(
             tiles[:, :3], ntx, nty, ts, height, width), iters=10)
         # the library yardstick: the tile -> image-row transposition as one
@@ -2212,25 +1984,8 @@ def main() -> int:
         b5_times = in_turns(
             M, lambda: L.untile_chw_fast(tiles, ntx, nty, ts, height, width),
             lambda: flat.permute(0, 1, 3, 2, 4).contiguous())
-        b5_bytes = 2 * 3 * width * height * 4
-        b5_bound, b5_by = M.U.bound(b5_bytes, 0)
-
-        def whole():
-            with torch.no_grad():
-                return R.render_tiled(model, cam, cfg)
-
-        whole()
-        torch.cuda.synchronize()
-        reps = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            whole()
-            torch.cuda.synchronize()
-            reps.append((time.perf_counter() - t0) * 1e3)
-        render_ms = sum(reps) / len(reps)
-        stages = stage_times(torch, model, cam, cfg, ntx, nty, ng,
-                             project_gaussians, bin_gaussians, R, L)
-        device = M.U.device_profile(whole, PORT_KERNELS)
+        b5_bytes, b5_ops = K.b5_untile(width, height)
+        b5_bound, b5_by = bound_of(M, b5_bytes, b5_ops)
 
         # the layout of one tile per group: more groups than the grid's
         # 65,535 in y and z, the same image as the default layout (binning
@@ -2252,8 +2007,7 @@ def main() -> int:
                  source=f"{PACKAGE}/csrc/rasterize_fwd.cu",
                  replaces=B1_REPLACES, launches=launches["B1"],
                  max_abs_err=max(b1_err), **b1_times, plain_ms=b1_plain_ms,
-                 bound_ms=b1_bound, bound_by=b1_by,
-                 bound_ms_all_pairs=b1_bound_all_pairs, library_ms=None),
+                 bound_ms=b1_bound, bound_by=b1_by, library_ms=None),
             b5_row(b5_times, b5_bytes, 2 * 3 * ntx * nty * ts * ts * 4,
                    name="B5-untile untile_chw", route="cuda",
                    source=f"{PACKAGE}/csrc/untile_chw.cu",
@@ -2266,11 +2020,8 @@ def main() -> int:
              b1_tolerance="rtol 1e-4, atol 1e-5",
              b1_bit_equal_to_plain=b1_bit_equal, b1_evaluations=evaluations,
              b1_pairs_read=pairs_read, b1_bytes=b1_bytes,
-             b5_exactly_equal=b5_ok,
-             render_tiled_ms=reps, render_tiled_mean_ms=render_ms,
-             render_tiled_mpix_per_s=mpix / (render_ms / 1e3),
-             stages_host_ms=stages, device_profile=device,
-             one_tile_per_group=one_per_group, card=card)
+             b5_exactly_equal=b5_ok, one_tile_per_group=one_per_group,
+             card=card)
         check(not one_per_group or (one_per_group["groups"] > 65535
                                     and one_per_group["equal_to_default"]),
               f"{scene}: the render at group_tiles=1 differs from the "

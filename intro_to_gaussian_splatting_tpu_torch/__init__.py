@@ -14,12 +14,12 @@ It renders views, trains a scene on one card, saves, resumes and scores it:
              projection, the probe kernels P1 and P2
   train/     losses and metrics, densify/prune, Adam and the training step,
              the Trainer loop, checkpoints and PLY export, evaluation
-  utils/     profiling, timing and the card's ceilings
+  utils/     spans of the port's layers, kernel timing, the host C++
   scripts/   ``probe_kernel`` (P1 and P2 on the card)
   csrc/      the CUDA C++ kernels, built with nvcc at first use
   convert.py numpy -> port model, camera and training state (from the JAX
              package)
-  cli.py     ``gstpu-torch render|points|bench|info|train|eval|fetch``
+  cli.py     ``gstpu-torch render|points|info|train|eval|fetch``
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,6 +1,7 @@
 """Command-line interface of the port, ``gstpu-torch``, over COLMAP scene
-directories: ``render``, ``points``, ``bench``, ``info``, ``train``,
-``eval`` and ``fetch``, with the JAX package's flags.
+directories: ``render``, ``points``, ``info``, ``train``, ``eval`` and
+``fetch``, with the JAX package's flags. The JAX package's ``bench`` has
+no counterpart: the port's benchmark is the repository's ``gsbench/``.
 
 Every command runs on the CUDA card; ``--cpu`` runs the same path on the
 host, with the kernels' plain PyTorch versions. Each command that computes
@@ -133,25 +134,6 @@ def cmd_points(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    from intro_to_gaussian_splatting_tpu_torch.ops.render import render
-    from intro_to_gaussian_splatting_tpu_torch.utils.profiling import (
-        benchmark,
-    )
-
-    model, cam, points, _ = _load(args)
-    config = _rcfg_for(args)
-    with torch.no_grad():
-        res = benchmark(render, model, cam, config, backend=args.backend,
-                        iters=args.iters)
-    print(f"{cam.width}x{cam.height}, {len(points)} gaussians, "
-          f"backend={args.backend}, device={model.device}: "
-          f"{res.mean_s * 1e3:.2f} ms/frame "
-          f"({res.mpix_per_s(cam.width, cam.height):.1f} Mpix/s), "
-          f"first call {res.first_s:.1f}s")
-    return 0
-
-
 def cmd_info(args) -> int:
     sparse, (cameras, images, points) = _read_scene(args.scene)
     print(f"model dir: {sparse}")
@@ -256,14 +238,6 @@ def main(argv=None) -> int:
                    help="report the reprojection error of the projected 3D "
                         "points against COLMAP's stored 2D keypoints")
     p.set_defaults(fn=cmd_points)
-
-    p = sub.add_parser("bench", help="time the renderer on a scene view")
-    _add_scene_args(p)
-    p.add_argument("--tile-size", type=int, default=16)
-    p.add_argument("--compat", choices=COMPAT_CHOICES, default="default")
-    p.add_argument("--backend", choices=BACKENDS, default="auto")
-    p.add_argument("--iters", type=int, default=10)
-    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("info", help="print scene statistics")
     _add_scene_args(p)

@@ -1,4 +1,4 @@
-"""Profiling, timing and the card's ceilings.
+"""Spans of the port's layers and helpers that time kernels on the card.
 
 The port's counterpart of the JAX package's ``utils/profiling.py``:
 
@@ -6,9 +6,6 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
                            recorded only while a ``torch.profiler`` session
                            is open, kept in memory (the newest
                            ``SPAN_BUFFER``);
-  * ``benchmark(...)``     wall time per call with the card synchronised,
-                           the first call (where the kernels build) timed
-                           apart;
   * ``profile_device_time(...)``  the device durations of the CUDA kernels
                            whose name contains a substring, read from
                            ``torch.profiler``'s events;
@@ -16,16 +13,13 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
                            from ``torch.profiler``, timed in turns;
   * ``device_ms_per_call(...)``  one function's device time per call
                            under ``torch.profiler``, by kernel name;
-  * ``cuda_ms``, ``device_profile``  a function's mean device time from
-                           CUDA events, and one call's kernel time, wall
-                           time and idle share under the profiler;
-  * ``HBM_BYTES_PER_S``, ``FP32_FLOP_PER_S`` and ``bound``: the least time
-                           the card could take for a given number of bytes
-                           and float32 operations.
+  * ``cuda_ms(...)``       a function's mean device time from CUDA events.
 
-The JAX package's TPU roofline (MXU passes, VPU ratio, ``TPU_PEAKS``)
-describes a TPU and has no counterpart here, and its ``trace`` (a Chrome
-trace written to a directory) none either: ``torch.profiler`` exports one.
+The port's benchmark, its work counts and the card's peaks are in
+``gsbench/`` (``gsbench/counts.py``), which reads the spans; the port does
+not import it. So the JAX package's ``benchmark`` and roofline (MXU
+passes, VPU ratio, ``TPU_PEAKS``) have no counterpart here, nor its
+``trace`` (``torch.profiler`` exports a Chrome trace).
 
 Spans: ``with span("render"): ...`` marks a layer of the port. Outside a
 profiler session it costs one attribute read and returns a shared object
@@ -44,29 +38,13 @@ span leaves the buffer.
 from __future__ import annotations
 
 import collections
-import dataclasses
 import itertools
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
-import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
-
-# Published peaks of one H100 SXM (NVIDIA data sheet), at its 700 W limit:
-# HBM3 bandwidth and float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
-
-def bound(nbytes: float, ops: float):
-    """(ms, binding resource): the larger of ``nbytes`` over the HBM rate
-    and ``ops`` float32 operations over the f32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
 
 # ---------------------------------------------------------------------------
 # Spans
@@ -210,41 +188,6 @@ def _activities():
     return acts
 
 
-@dataclasses.dataclass
-class BenchResult:
-    mean_s: float
-    min_s: float
-    std_s: float
-    iters: int
-    first_s: float     # the first call, kernels built and loaded in it
-
-    def mpix_per_s(self, width: int, height: int) -> float:
-        return width * height / 1e6 / self.mean_s
-
-
-def benchmark(fn: Callable, *args, iters: int = 10, warmup: int = 2,
-              **kwargs) -> BenchResult:
-    """Time ``fn(*args, **kwargs)`` on a host clock, each call ending in a
-    synchronise of the card. The first call is timed apart (``first_s``):
-    the kernels build and load in it."""
-    t0 = time.perf_counter()
-    fn(*args, **kwargs)
-    _sync()
-    first_s = time.perf_counter() - t0
-    for _ in range(max(0, warmup - 1)):
-        fn(*args, **kwargs)
-    _sync()
-    samples = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args, **kwargs)
-        _sync()
-        samples.append(time.perf_counter() - t0)
-    s = np.asarray(samples)
-    return BenchResult(mean_s=float(s.mean()), min_s=float(s.min()),
-                       std_s=float(s.std()), iters=iters, first_s=first_s)
-
-
 def _kernel_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -338,32 +281,3 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_profile(fn, named: Optional[dict] = None) -> dict:
-    """One call of ``fn`` under torch.profiler: its wall ms, the ms the
-    card spent in kernels, the idle share, the five longest kernels and,
-    for each ``label: name`` of ``named``, the ms and launches of the
-    kernels whose names contain ``name``."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=_activities()) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:5]
-    by_label = {
-        label: [sum(e.self_device_time_total for e in kernels
-                    if name in e.key) / 1e3,
-                sum(e.count for e in kernels if name in e.key)]
-        for label, name in (named or {}).items()}
-    return dict(wall_ms=wall_ms, kernel_ms=busy_ms,
-                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                kernel_launches=sum(e.count for e in kernels),
-                top_kernels=[[e.key[:80], e.self_device_time_total / 1e3,
-                              e.count] for e in top],
-                named_kernel_ms=by_label)

@@ -52,6 +52,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.binning import (
     num_groups_for,
     tile_grid,
 )
+from intro_to_gaussian_splatting_tpu_torch.ops.compositing import render_dense
 from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
     GRAD_ROWS,
     project_gaussians,
@@ -277,13 +278,18 @@ def test_b5_kernel_matches_plain_on_card(case, cuda_device):
 
 @pytest.mark.cuda
 def test_render_on_card_matches_cpu(cuda_device):
+    """The card's render against the CPU path and against the dense oracle
+    on the card."""
     kw, cfg = CASES["early_exit"]
     renders = {}
     for device in ("cpu", cuda_device):
         model, cam = _scene(device, **kw)
         with torch.no_grad():
             renders[str(device)] = render(model, cam, cfg).cpu()
+    with torch.no_grad():
+        dense = render_dense(model, cam, cfg).cpu()
     torch.testing.assert_close(renders["cuda"], renders["cpu"], **TOL)
+    torch.testing.assert_close(renders["cuda"], dense, **TOL)
 
 
 def _pair_stream(counts, opacity, scale, seed, device, ts=16, gt=4):
@@ -488,8 +494,7 @@ def test_train_step_gradients_on_card(cuda_device):
     (Splats of 0.08-0.3: with thinner ones the quaternion and scale
     gradients of the two paths part by more than the tolerance although
     B2 matches its plain version closely, f32 rounding of the two
-    projections amplified by cancellation in the covariance's backward;
-    chip_smoke.py reports that case.)"""
+    projections amplified by cancellation in the covariance's backward.)"""
     kw = dict(n=200, width=48, height=32, seed=11, scales=(0.08, 0.3))
     cfg = CFG
     tcfg = TrainConfig()

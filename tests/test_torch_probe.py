@@ -98,17 +98,8 @@ def test_probe_zero_plain_and_sizes():
 
 
 def test_profiling_helpers_on_the_cpu():
-    """The port's utils/profiling.py off the card: benchmark's first call
-    timed apart, the card's ceilings (P1's bound: 539.5 MB over 3.35
-    TB/s), no device time without a card."""
+    """The port's utils/profiling.py off the card: no device time without
+    a card."""
     from intro_to_gaussian_splatting_tpu_torch.utils import profiling as U
 
-    calls = []
-    res = U.benchmark(lambda x: calls.append(x), 1, iters=4, warmup=2)
-    assert len(calls) == 6 and res.iters == 4
-    assert 0 <= res.min_s <= res.mean_s and res.first_s >= 0
-    assert res.mpix_per_s(1000, 1000) == pytest.approx(1.0 / res.mean_s)
-    ms, by = U.bound(4 * P.NT * 8 * 256, 0)
-    assert by == "bytes" and ms == pytest.approx(0.16104, rel=1e-4)
-    assert U.bound(0, 67e9) == (pytest.approx(1.0), "operations")
     assert U.profile_device_time(lambda: torch.ones(4), iters=2) == []

@@ -1,9 +1,12 @@
 """The port stands alone: no file of it, nor chip_smoke.py, imports JAX or
 the JAX package; importing every module of it loads no JAX; and
-chip_smoke.py fails, printing no result, where there is no card."""
+chip_smoke.py fails, printing no result, where there is no card. The work
+counts and the card's peaks live in gsbench/counts.py alone: neither the
+port nor chip_smoke.py keeps a copy."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +49,45 @@ def test_no_file_of_the_port_imports_jax():
     assert bad == []
     assert _forbidden("intro_to_gaussian_splatting_tpu.ops")
     assert not _forbidden("intro_to_gaussian_splatting_tpu_torch.ops")
+
+
+def _assigned_names(path: Path):
+    """Every name the file binds by assignment, and ``name()`` for each
+    function it defines."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield node.name + "()"
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(
+                       node, (ast.AnnAssign, ast.AugAssign)) else [])
+        for target in targets:
+            for leaf in ast.walk(target):
+                if isinstance(leaf, ast.Name):
+                    yield leaf.id
+
+
+PEAKS = {"HBM_BYTES_PER_S", "FP32_FLOP_PER_S"}
+
+
+def _copies(names, counts: str):
+    """The peaks, a ``bound()`` and the work counts named like ``counts``
+    among ``names``."""
+    return sorted(n for n in names if n in PEAKS or n == "bound()"
+                  or re.fullmatch(counts, n))
+
+
+def test_no_copy_of_the_work_counts_or_peaks():
+    port = {str(p.relative_to(REPO)): set(_assigned_names(p))
+            for p in sorted(PORT.rglob("*.py"))}
+    assert len(port) > 15
+    bad = {f: _copies(names, r"\w+_OPS_PER_(EVALUATION|PIXEL)")
+           for f, names in port.items()}
+    assert {f: v for f, v in bad.items() if v} == {}
+    smoke = set(_assigned_names(REPO / "chip_smoke.py"))
+    assert _copies(smoke, r"B[123]_\w*(OPS|ROWS)\w*") == []
+    # what is left there counts the kernels gsbench/counts.py does not
+    assert "B4A_OPS_PER_PIXEL" in smoke
 
 
 def _start(code_or_args, cwd):
