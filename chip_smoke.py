@@ -12,7 +12,7 @@ It imports only the port (``intro_to_gaussian_splatting_tpu_torch``), never
 JAX, and prints one JSON line per phase:
 
   device          card name and power limit, torch and CUDA versions, the
-                  build of all eleven kernels (one nvcc per source, started
+                  build of all thirteen kernels (one nvcc per source, started
                   together) and ptxas's register / shared-memory / spill
                   report;
   small_batched   ``train_step_batched`` over two cameras on the card: its
@@ -23,8 +23,8 @@ JAX, and prints one JSON line per phase:
   ref_init        the treehill-scale scene (52,363 gaussians at 5068x3324,
                   built as bench.py builds it) at the reference init,
                   through ``ops.render.render(backend="auto")`` with the
-                  render kernels' launch counts set to 0 just before and
-                  read just after;
+                  render kernels' launch counts (J1, B1, B5-untile) set to
+                  0 just before and read just after;
   knn_init        the same scene at the KNN scale init with the dense pool
                   (pairs_per_gaussian=585, group_tiles=16, groups_per_step=16);
   *_kernels       per scene, B1 and B5-untile against their plain versions
@@ -42,9 +42,9 @@ JAX, and prints one JSON line per phase:
   train_ref_init  ten ``train_step``s at that scene (bench.py's gradient
                   target, ``TrainConfig()``), every launch count set to 0
                   just before and read just after: per step loss, PSNR and
-                  launches of B1, B2, B3 and G1; step time on a host clock
-                  around synchronised steps (mean of steps 2-10) and as
-                  Mpix/s; peak memory;
+                  launches of J1, B1, B2, B3, G1 and J2; step time on a
+                  host clock around synchronised steps (mean of steps
+                  2-10) and as Mpix/s; peak memory;
   train_knn_init  the same at the KNN init and the dense pool; both also
                   time one densify + prune pass (``Trainer._densify_and_
                   prune``) after their steps, host ms between two
@@ -65,6 +65,14 @@ JAX, and prints one JSON line per phase:
                   replaced) and the float64 block sums, exact zeros, bit
                   for bit on repeat, one launch per call; its ms beside
                   its bound and the plain chain's ms;
+  projection_kernels_render, projection_kernels_train  J1 and J2 at the
+                  render cell's 52,363 gaussians and the train cell's
+                  pool of 4x, SH 3, seeded rotations, scales and
+                  coefficients: J1 against its plain version (radius and
+                  valid equal, each float field's ulps), J2 against
+                  autograd through it (relative L2 1e-5, exact zeros, bit
+                  for bit on repeat), one launch each per call; ms beside
+                  the bound and the plain chain's ms;
   ssim_kernels    B4a, B4b and B4c against their plain versions on seeded
                   3x3324x5068 images (B4b and B4c at both grad_target
                   settings), B4c's value B4a's bit for bit, times (B4a's
@@ -72,11 +80,11 @@ JAX, and prints one JSON line per phase:
                   one-pass path ``fused_ssim(precompute_grad=True)`` under
                   autograd, counted (B4c once);
   train_split_ref_init    ten split-loss ``train_step``s at ref_init, each
-                  launching B1, B2, B4a, B4b, B5-untile, B5-tile and G1
-                  once and B3 never, counted from 0 as above;
+                  launching J1, B1, B2, B4a, B4b, B5-untile, B5-tile, G1
+                  and J2 once and B3 never, counted from 0 as above;
   train_batched_ref_init  five ``train_step_batched`` steps over two ring
-                  cameras at ref_init, each launching B1, B2, B3 and G1
-                  twice;
+                  cameras at ref_init, each launching J1, B1, B2, B3, G1
+                  and J2 twice;
   probes          the port's probe script (P1, P2 at 65,856 programs) with
                   the counts set to 0 just before and read just after, P1
                   exactly zero, P2 against its plain version on the
@@ -151,7 +159,8 @@ benchmark's to read from the program's spans (``gsbench/``).
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
 the ref_init render gradient, B4a and B4b from the split-loss run, B4c from
-the one-pass SSIM path, P1 and P2 from the probe script, G1 from its phase)
+the one-pass SSIM path, P1 and P2 from the probe script, G1 from its phase,
+J1 and J2 from theirs at the train cell's shape)
 and, last, the contract line. Any failed check exits non-zero before the
 last line; with no card, or outside a checkout, it exits non-zero and
 prints no result.
@@ -438,7 +447,8 @@ def make_step(M, step_fn, model, camera, targets, cfg, tcfg):
 
 def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
     """The training main path: ``steps`` train_steps of the default
-    TrainConfig, each launching B1, B2, B3 and G1 once (``run_steps``), then
+    TrainConfig, each launching J1, B1, B2, B3, G1 and J2 once
+    (``run_steps``), then
     one densify + prune pass. Returns the launch totals by kernel and the
     step ms."""
     step, state = make_step(M, M.T.train_step, model, cam,
@@ -446,7 +456,7 @@ def train_run(torch, M, scene, model, cam, target, cfg, card, steps=10):
     launches, step_ms = run_steps(
         torch, M, f"train_{scene}", step, model,
         {"rasterize_fwd": 1, "rasterize_bwd": 1, "fused_loss": 1,
-         "segment_sums": 1}, steps,
+         "segment_sums": 1, "project_fwd": 1, "project_bwd": 1}, steps,
         cam.width * cam.height / 1e6, card,
         after=lambda: dict(densify_pass=densify_pass(
             torch, M, model, state["densify"], cam)))
@@ -746,6 +756,122 @@ def g1_kernel(torch, M, model, cam, card):
     check(zeros and repeat and launched == 2,
           f"g1_kernel: zeros {zeros}, repeat {repeat}, launches {launched}")
     return row
+
+
+def ulps(torch, got, want) -> int:
+    """The largest distance between two float32 tensors in units in the
+    last place (0 and -0 alike)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def projection_kernels(torch, M, xyz, rgb, cam, card):
+    """J1 and J2 at both benchmark cells' shapes: the 52,363 points with
+    SH 3 (the render cell) and the same in a pool of 4x (the train cell),
+    the points with seeded rotations, per-axis scales and higher SH
+    coefficients. J1 against the plain version on the card (radius and
+    valid equal, each float field's ulps), J2 against autograd through the
+    plain version on seeded cotangents (relative L2 1e-5 per leaf, exact
+    zeros where autograd has them, bit for bit on repeat), one launch
+    each per call; profiler and CUDA-event ms, the bound (bytes: J1 reads
+    237 B and writes 45 B a slot, J2 reads the inputs and 40 B of
+    cotangents and writes 236 B) and the plain chain's ms (forward; its
+    autograd backward). Returns the kernel rows of the train shape."""
+    P = M.J
+    fields = ("mean2d", "depth", "conic", "color", "opacity")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n = len(xyz)
+    rows = {}
+    for shape, capacity in (("render", n), ("train", 4 * n)):
+        model = M.init_from_points(xyz, rgb, sh_degree=3, color_space="sh",
+                                   scale_init=None, opacity=0.9,
+                                   capacity=capacity, device="cuda")
+        with torch.no_grad():
+            model.sh[:n, 1:] = 0.1 * torch.randn(
+                (n, 15, 3), generator=gen, device="cuda")
+            model.log_scales[:n] += 0.5 * torch.randn(
+                (n, 3), generator=gen, device="cuda")
+            model.quats[:n] = torch.randn((n, 4), generator=gen,
+                                          device="cuda")
+        leaves = [getattr(model, k) for k in M.PARAM_NAMES]
+        before = (P.PROJECT_FWD.launches, P.PROJECT_BWD.launches)
+        with torch.no_grad():
+            got = P.project_gaussians(model, cam)
+            want = P.project_gaussians_reference(model, cam)
+        field_ulps = {f: ulps(torch, getattr(got, f), getattr(want, f))
+                      for f in fields}
+        radius_equal = torch.equal(got.radius, want.radius)
+        valid_equal = torch.equal(got.valid, want.valid)
+        cot = {f: torch.randn(getattr(want, f).shape, generator=gen,
+                              device="cuda") for f in fields}
+        plain = P.project_gaussians_reference(model, cam)
+        outs = [getattr(plain, f) for f in fields]
+        cots = [cot[f] for f in fields]
+        want_g = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        grads = []
+        for _ in range(2):
+            proj = P.project_gaussians(model, cam)
+            grads.append(torch.autograd.grad(
+                [getattr(proj, f) for f in fields], leaves, cots))
+        fwd_launched = P.PROJECT_FWD.launches - before[0]
+        bwd_launched = P.PROJECT_BWD.launches - before[1]
+        rel = {k: rel_l2(torch, g, w)
+               for k, g, w in zip(M.PARAM_NAMES, grads[0], want_g)}
+        zeros = all(not bool(g[w == 0].any())
+                    for g, w in zip(grads[0], want_g))
+        repeat = all(torch.equal(a, b) for a, b in zip(*grads))
+        params = [getattr(model, k).detach() for k in M.PARAM_NAMES]
+        degree = 3
+        with torch.no_grad():
+            j1 = profiled(M, lambda: P.project_gaussians(model, cam),
+                          ("project_fwd_kernel",))
+            j1_plain_ms = M.U.cuda_ms(
+                lambda: P.project_gaussians_reference(model, cam), iters=5)
+        j2 = profiled(M, lambda: P._project_bwd_cuda(
+            params, cam, M.RasterizerConfig(), degree, cots),
+            ("project_bwd_kernel",))
+        j2_plain_ms = M.U.cuda_ms(lambda: torch.autograd.grad(
+            outs, leaves, cots, retain_graph=True), iters=5)
+        torch.cuda.synchronize()
+        active = int(model.active.sum())
+        fwd_ops = M.K.projection_ops(capacity, 3)
+        for name, t, plain_ms, nbytes, ops, launched in (
+                ("J1 project_fwd", j1, j1_plain_ms, 282 * capacity, fwd_ops,
+                 fwd_launched),
+                ("J2 project_bwd", j2, j2_plain_ms, 513 * capacity,
+                 fwd_ops * M.K.PROJECTION_BACKWARD_FACTOR, bwd_launched)):
+            bound, by = bound_of(M, nbytes, ops)
+            rows.setdefault(shape, []).append(dict(
+                name=name, route="cuda",
+                source=f"{PACKAGE}/csrc/projection.cu",
+                # no Pallas kernel: the JAX package's projection is XLA ops
+                replaces=None, launches=launched, **t, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, bytes=nbytes,
+                library_ms=None))
+        emit(f"projection_kernels_{shape}", kernels=rows[shape],
+             slots=capacity, active=active, field_ulps=field_ulps,
+             radius_equal=radius_equal, valid_equal=valid_equal,
+             grad_rel_l2=rel, exact_zeros=zeros, bit_equal_on_repeat=repeat,
+             library_ms_null_reason="no single PyTorch call computes this "
+                                    "function; its plain version is a "
+                                    "composition of many",
+             tolerance="J1: every field bit-equal; J2: relative L2 1e-5 "
+                       "against autograd, its exact zeros",
+             card=card)
+        check(radius_equal and valid_equal and not any(field_ulps.values()),
+              f"projection_kernels_{shape}: J1 differs: ulps {field_ulps}, "
+              f"radius {radius_equal}, valid {valid_equal}")
+        check(max(rel.values()) <= 1e-5 and zeros and repeat,
+              f"projection_kernels_{shape}: J2 differs: {rel}, zeros "
+              f"{zeros}, repeat {repeat}")
+        check(fwd_launched == 3 and bwd_launched == 2,
+              f"projection_kernels_{shape}: launches J1 {fwd_launched}, "
+              f"J2 {bwd_launched}")
+        del model, leaves, got, want, plain, outs, want_g, grads, params
+        torch.cuda.empty_cache()
+    return rows["train"]
 
 
 def ssim_kernels(torch, M, height, width, card):
@@ -1725,6 +1851,7 @@ def main() -> int:
     from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
     from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as FL
     from intro_to_gaussian_splatting_tpu_torch.ops import probe as P
+    from intro_to_gaussian_splatting_tpu_torch.ops import projection as J
     from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as R
     from intro_to_gaussian_splatting_tpu_torch.ops import relayout as L
     from intro_to_gaussian_splatting_tpu_torch.ops import ssim as S
@@ -1762,7 +1889,7 @@ def main() -> int:
 
     M = types.SimpleNamespace(
         B=B, R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E,
-        LS=LS, K=K,
+        LS=LS, K=K, J=J,
         SP=SP, N=N, TC=TC, CM=CM, cuda_build=cuda_build,
         GaussianModel=GaussianModel, render_dense=render_dense,
         sorted_records=sorted_records, make_colmap_scene=make_colmap_scene,
@@ -1774,7 +1901,7 @@ def main() -> int:
         ALL_KERNELS=(R.RASTERIZE_FWD, R.RASTERIZE_BWD, FL.FUSED_LOSS,
                      L.UNTILE_CHW, L.TILE_CHW, S.SSIM_SUM, S.SSIM_GRAD,
                      S.SSIM_VALUE_GRAD, P.PROBE_ZERO, P.PROBE_WINDOW,
-                     B.SEGMENT_SUMS))
+                     B.SEGMENT_SUMS, J.PROJECT_FWD, J.PROJECT_BWD))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
@@ -1916,13 +2043,15 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         R.RASTERIZE_FWD.launches = 0
         L.UNTILE_CHW.launches = 0
+        J.PROJECT_FWD.launches = 0
         t0 = time.perf_counter()
         with torch.no_grad():
             image = render(model, cam, cfg, backend="auto")
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = {"B1": R.RASTERIZE_FWD.launches,
-                    "B5-untile": L.UNTILE_CHW.launches}
+                    "B5-untile": L.UNTILE_CHW.launches,
+                    "J1": J.PROJECT_FWD.launches}
         peak = torch.cuda.max_memory_allocated()
         with torch.no_grad():
             proj = project_gaussians(model, cam, cfg)
@@ -2058,6 +2187,10 @@ def main() -> int:
         device="cuda"), cam, card)]
     torch.cuda.empty_cache()
 
+    # -- J1 and J2 at both cells' shapes
+    j_rows = projection_kernels(torch, M, xyz, rgb, cam, card)
+    torch.cuda.empty_cache()
+
     # -- the split-loss SSIM kernels at the training path's size, then the
     # split-loss and batched training paths at the ref_init scene
     b4_rows = ssim_kernels(torch, M, height, width, card)
@@ -2071,7 +2204,8 @@ def main() -> int:
         cfg, TrainConfig(fused_loss=False))
     one_each = {k.symbol: 1 for k in (R.RASTERIZE_FWD, R.RASTERIZE_BWD,
                                       S.SSIM_SUM, S.SSIM_GRAD, L.UNTILE_CHW,
-                                      L.TILE_CHW, B.SEGMENT_SUMS)}
+                                      L.TILE_CHW, B.SEGMENT_SUMS,
+                                      J.PROJECT_FWD, J.PROJECT_BWD)}
     split_launches, _ = run_steps(torch, M, "train_split_ref_init", split_step,
                                model, dict(one_each, fused_loss=0), 10, mpix,
                                card)
@@ -2091,7 +2225,7 @@ def main() -> int:
         TrainConfig())
     run_steps(torch, M, "train_batched_ref_init", batched_step, model,
               {"rasterize_fwd": 2, "rasterize_bwd": 2, "fused_loss": 2,
-               "segment_sums": 2}, 5,
+               "segment_sums": 2, "project_fwd": 2, "project_bwd": 2}, 5,
               2 * mpix, card)
     del batched_step, model
     torch.cuda.empty_cache()
@@ -2150,7 +2284,7 @@ def main() -> int:
 
     print(card, flush=True)
     print(json.dumps({"kernels": summary["ref_init"] + b4_rows + p_rows
-                      + g1_rows}),
+                      + g1_rows + j_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

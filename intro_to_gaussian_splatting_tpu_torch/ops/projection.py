@@ -10,21 +10,38 @@ the JAX package so both round alike:
   6. 3-sigma screen radius via eigenvalues
   7. colour: raw RGB or SH evaluation
 Culled gaussians keep their slots with ``valid=False`` and radius 0.
+
+``project_gaussians`` runs the plain version, ``project_gaussians_reference``,
+for tensors on the CPU. For tensors on the card it is an
+``autograd.Function`` whose forward launches kernel J1 and whose backward
+launches kernel J2 (csrc/projection.cu): one launch each way in place of
+the plain version's few hundred small ones. It raises on what the kernels
+do not take. The offset of ``mean2d_offset`` is added after J1, so its
+gradient reaches the probe as on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from intro_to_gaussian_splatting_tpu_torch.config import RasterizerConfig
-from intro_to_gaussian_splatting_tpu_torch.models.camera import Camera
+from intro_to_gaussian_splatting_tpu_torch.models.camera import (
+    CAMERA_TENSORS,
+    Camera,
+)
 from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
+    PARAM_NAMES,
     GaussianModel,
     covariance_3d_channels,
 )
 from intro_to_gaussian_splatting_tpu_torch.models.sh import eval_sh
+from intro_to_gaussian_splatting_tpu_torch.ops.cuda_build import (
+    CudaKernel,
+    KernelSource,
+)
 
 # Feature rows of the packed, feature-major (NUM_REC_ROWS, N) record matrix.
 # The payload rows [r, g, b, depth, 1] are contiguous at the end.
@@ -70,7 +87,7 @@ def ndc2pix(v: torch.Tensor, dim: int) -> torch.Tensor:
     return (v + 1.0) * (dim - 1) * 0.5
 
 
-def project_gaussians(
+def project_gaussians_reference(
     model: GaussianModel,
     camera: Camera,
     config: RasterizerConfig = RasterizerConfig(),
@@ -155,6 +172,191 @@ def project_gaussians(
     valid = in_frustum & model.active & (radius > 0)
     radius = torch.where(valid, radius, 0.0)
 
+    return ProjectedGaussians(
+        mean2d=mean2d, depth=depth, conic=conic, radius=radius,
+        color=color, opacity=opacity, valid=valid,
+    )
+
+
+# kernels J1 and J2; -fmad=false: J1 rounds step by step as the plain
+# version's chain of library kernels does
+PROJECTION_SOURCE = KernelSource("projection", ("-fmad=false",))
+# both entries' camera pointers, rasterizer scalars, image size, colour and
+# sigmoid flag
+_SHARED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_float] * 6 + [
+    ctypes.c_int] * 4
+PROJECT_FWD = CudaKernel(PROJECTION_SOURCE, "project_fwd", [
+    *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, *_SHARED_ARGS,
+    *[ctypes.c_void_p] * 7, ctypes.c_int, ctypes.c_void_p,
+])
+PROJECT_BWD = CudaKernel(PROJECTION_SOURCE, "project_bwd", [
+    *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_int, *_SHARED_ARGS,
+    *[ctypes.c_void_p] * 10, ctypes.c_int, ctypes.c_void_p,
+])
+RGB_DEGREE = -1   # the kernels' colour argument for raw RGB
+
+
+def _inputs(model: GaussianModel, camera: Camera) -> dict:
+    return {**{n: getattr(model, n) for n in PARAM_NAMES},
+            "active": model.active,
+            **{f"camera.{n}": getattr(camera, n) for n in CAMERA_TENSORS}}
+
+
+def _check_devices(model, camera, mean2d_offset) -> None:
+    dev = model.means.device
+    inputs = _inputs(model, camera)
+    if mean2d_offset is not None:
+        inputs["mean2d_offset"] = mean2d_offset
+    mixed = {n: str(t.device) for n, t in inputs.items() if t.device != dev}
+    if mixed:
+        raise ValueError(f"project_gaussians takes every input on the means' "
+                         f"device ({dev}); on others: {mixed}")
+
+
+def _kernel_degree(model: GaussianModel, active_sh_degree) -> int:
+    """The kernels' colour argument: raw RGB, or the SH degree that
+    ``eval_sh`` evaluates (0 to 3)."""
+    if model.color_space == "rgb":
+        return RGB_DEGREE
+    deg = model.sh_degree if active_sh_degree is None else active_sh_degree
+    deg = min(max(int(deg), 0), 3)
+    if (deg + 1) ** 2 > model.sh.shape[1]:
+        raise ValueError(f"SH degree {deg} needs {(deg + 1) ** 2} "
+                         f"coefficients, the model has {model.sh.shape[1]}")
+    return deg
+
+
+def check_card_inputs(model: GaussianModel, camera: Camera,
+                      mean2d_offset: torch.Tensor | None = None) -> None:
+    """Raise ValueError on what J1 and J2 do not take: any input on another
+    device than the means, a parameter or camera tensor of another dtype
+    than float32, a camera tensor that requires grad, shapes other than
+    the model's and the camera's, or tensors that are not on a card."""
+    _check_devices(model, camera, mean2d_offset)
+    inputs = _inputs(model, camera)
+    wrong = {n: str(t.dtype) for n, t in inputs.items()
+             if t.dtype != (torch.bool if n == "active" else torch.float32)}
+    if wrong:
+        raise ValueError(f"J1/J2 take float32 parameters and camera tensors "
+                         f"and a bool active mask, got {wrong}")
+    grad = [n for n, t in inputs.items()
+            if n.startswith("camera.") and t.requires_grad]
+    if grad:
+        raise ValueError(f"J1/J2 give no gradient to the camera, and {grad} "
+                         f"requires one")
+    n = model.means.shape[0]
+    shapes = dict(means=(n, 3), log_scales=(n, 3), quats=(n, 4),
+                  opacity_logits=(n,), active=(n,))
+    shapes["camera.world2view"] = shapes["camera.full_proj"] = (4, 4)
+    sizes = {f"camera.{k}": 1 for k in ("fx", "fy", "tan_fovx", "tan_fovy")}
+    sizes["camera.cam_center"] = 3
+    bad = [k for k, s in shapes.items() if tuple(inputs[k].shape) != s]
+    bad += [k for k, s in sizes.items() if inputs[k].numel() != s]
+    if model.sh.dim() != 3 or model.sh.shape[0] != n or model.sh.shape[2] != 3:
+        bad.append("sh")
+    if bad:
+        raise ValueError(f"J1/J2 take a model of (N, ...) parameters and a "
+                         f"single camera; wrong shapes: {bad}")
+    if model.means.device.type != "cuda":
+        raise ValueError(f"J1/J2 take tensors on a card, got "
+                         f"{model.means.device}")
+
+
+def _launch_args(params, camera, config, degree):
+    """J1's and J2's leading arguments (the parameters, the camera, the
+    rasterizer's scalars, the image size, the colour and the sigmoid) and
+    the camera tensors they point into, which the caller holds until it
+    has launched."""
+    means, _, _, _, sh = params
+    cam = [getattr(camera, n).contiguous() for n in CAMERA_TENSORS]
+    return ([t.data_ptr() for t in params], means.shape[0], sh.shape[1],
+            [t.data_ptr() for t in cam] + [
+                config.frustum_min_z, config.ewa_clamp, config.det_clamp,
+                config.eig_floor, config.radius_sigmas,
+                config.cov2d_dilation, camera.width, camera.height, degree,
+                int(config.compat.double_sigmoid)], cam)
+
+
+def _project_fwd_cuda(params, active, camera, config, degree):
+    """J1: the (mean2d, depth, conic, radius, color, opacity, valid) of
+    ``project_gaussians_reference``."""
+    ptrs, n, k, scalars, cam = _launch_args(params, camera, config, degree)
+    dev = params[0].device
+    out = [torch.empty(shape, dtype=torch.float32, device=dev)
+           for shape in ((n, 2), (n,), (n, 3), (n,), (n, 3), (n,))]
+    out.append(torch.empty((n,), dtype=torch.bool, device=dev))
+    PROJECT_FWD.launch(*ptrs, active.data_ptr(), n, k, *scalars,
+                       *[t.data_ptr() for t in out], dev.index or 0,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    return tuple(out)
+
+
+def _project_bwd_cuda(params, camera, config, degree, cotangents):
+    """J2: the gradients of the five parameters from the cotangents of
+    mean2d, depth, conic, color and opacity (None reads as zeros)."""
+    ptrs, n, k, scalars, cam = _launch_args(params, camera, config, degree)
+    dev = params[0].device
+    cot = [None if g is None else g.contiguous() for g in cotangents]
+    grads = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for t in params]
+    PROJECT_BWD.launch(*ptrs, n, k, *scalars,
+                       *[0 if g is None else g.data_ptr() for g in cot],
+                       *[t.data_ptr() for t in grads], dev.index or 0,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    return grads
+
+
+class _ProjectGaussians(torch.autograd.Function):
+    """The five parameters -> J1's seven outputs; the backward is J2, from
+    the saved parameters alone."""
+
+    @staticmethod
+    def forward(ctx, means, log_scales, quats, opacity_logits, sh, active,
+                camera, config, degree):
+        params = (means, log_scales, quats, opacity_logits, sh)
+        out = _project_fwd_cuda(params, active, camera, config, degree)
+        ctx.save_for_backward(*params)
+        ctx.camera, ctx.config, ctx.degree = camera, config, degree
+        ctx.mark_non_differentiable(out[3], out[6])   # radius, valid
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_depth, g_conic, _radius, g_color,
+                 g_opacity, _valid):
+        grads = _project_bwd_cuda(ctx.saved_tensors, ctx.camera, ctx.config,
+                                  ctx.degree, (g_mean2d, g_depth, g_conic,
+                                               g_color, g_opacity))
+        return (*grads, None, None, None, None)
+
+
+def project_gaussians(
+    model: GaussianModel,
+    camera: Camera,
+    config: RasterizerConfig = RasterizerConfig(),
+    active_sh_degree: int | None = None,
+    mean2d_offset: torch.Tensor | None = None,
+) -> ProjectedGaussians:
+    """``project_gaussians_reference``'s function: the plain version for a
+    model on the CPU, kernels J1 and J2 for one on the card (one launch
+    forward and, under autograd, one backward; nothing saved under
+    ``torch.no_grad()``)."""
+    if model.means.device.type != "cuda":
+        _check_devices(model, camera, mean2d_offset)
+        return project_gaussians_reference(model, camera, config,
+                                           active_sh_degree, mean2d_offset)
+    check_card_inputs(model, camera, mean2d_offset)
+    degree = _kernel_degree(model, active_sh_degree)
+    params = [getattr(model, n).contiguous() for n in PARAM_NAMES]
+    active = model.active.contiguous()
+    # under torch.no_grad(), or with no parameter that requires grad,
+    # apply builds no node and saves nothing
+    out = _ProjectGaussians.apply(*params, active, camera, config, degree)
+    mean2d, depth, conic, radius, color, opacity, valid = out
+    if mean2d_offset is not None:
+        # zero-valued probe: its gradient is the screen-space positional
+        # gradient that densification reads
+        mean2d = mean2d + mean2d_offset
     return ProjectedGaussians(
         mean2d=mean2d, depth=depth, conic=conic, radius=radius,
         color=color, opacity=opacity, valid=valid,

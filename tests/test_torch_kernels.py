@@ -19,11 +19,16 @@ B4a and B4b, value rel 1e-6 and gradient relative L2 1e-5; the relayouts
 and P1 exactly equal; P2 relative L2 1e-6 (its three payload sums taken
 in another order); G1 relative L2 1e-5 against its plain version (direct
 sums against differences of running sums), and no further than it from
-the float64 sums. Every kernel's output is the same bit for bit from one
-launch to the next.
+the float64 sums; J1 equal to its plain version but for the fields and
+ulps that ``test_projection_kernels_match_plain_on_card`` names, J2 within
+relative L2 1e-5 of autograd through the plain version (the same chain
+rule, its terms added in another order). Every kernel's output is the same
+bit for bit from one launch to the next.
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,11 +44,15 @@ from intro_to_gaussian_splatting_tpu_torch.models import (
     GaussianModel,
     make_camera,
 )
-from intro_to_gaussian_splatting_tpu_torch.models.gaussians import PARAM_NAMES
+from intro_to_gaussian_splatting_tpu_torch.models.gaussians import (
+    PARAM_NAMES,
+    covariance_3d_channels,
+)
 from intro_to_gaussian_splatting_tpu_torch.ops import binning as tb
 from intro_to_gaussian_splatting_tpu_torch.ops import cuda_build
 from intro_to_gaussian_splatting_tpu_torch.ops import fused_loss as tf
 from intro_to_gaussian_splatting_tpu_torch.ops import probe as tp
+from intro_to_gaussian_splatting_tpu_torch.ops import projection as tj
 from intro_to_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from intro_to_gaussian_splatting_tpu_torch.ops import relayout as tl
 from intro_to_gaussian_splatting_tpu_torch.ops import ssim as ts
@@ -61,6 +70,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.render import render
 from intro_to_gaussian_splatting_tpu_torch.train import trainer as T
 from tests import binning_cases
 
+REPO = Path(__file__).resolve().parent.parent
 CFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2)
 # kernel and plain version round alike (-fmad=false); the tolerance is the
 # one the JAX package's kernel tests use
@@ -122,7 +132,8 @@ def _bins(case, device, cfg=None):
 
 KERNELS = (tr.RASTERIZE_FWD, tr.RASTERIZE_BWD, tf.FUSED_LOSS, tl.UNTILE_CHW,
            tl.TILE_CHW, ts.SSIM_SUM, ts.SSIM_GRAD, ts.SSIM_VALUE_GRAD,
-           tp.PROBE_ZERO, tp.PROBE_WINDOW, tb.SEGMENT_SUMS)
+           tp.PROBE_ZERO, tp.PROBE_WINDOW, tb.SEGMENT_SUMS, tj.PROJECT_FWD,
+           tj.PROJECT_BWD)
 
 
 def rel_l2(got, want):
@@ -130,6 +141,70 @@ def rel_l2(got, want):
     den = torch.linalg.norm(want)
     return float(torch.linalg.norm(got - want) / den) if den else float(
         torch.linalg.norm(got))
+
+
+def ulps(got, want) -> int:
+    """The largest distance between two float32 tensors in units in the
+    last place (0 and -0 alike)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    if not got.numel():
+        return 0
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+# the projection's float outputs, which carry a gradient
+PROJ_FIELDS = ("mean2d", "depth", "conic", "color", "opacity")
+
+
+def _projection_scene(device, n, seed, coeffs=16, edges=False, width=64,
+                      height=48):
+    """A seeded model of ``n`` gaussians (``coeffs`` SH coefficients, or
+    raw RGB where ``coeffs`` is 0) around the origin and a ring camera
+    looking at it, made with numpy. ``edges`` puts slots 0-7 behind the camera, makes 8-11
+    inactive, 12-19 straddle the near plane (depth 0.2 within a few
+    float32 ulps), gives 20-39 scales of 1e-4 (determinant under
+    ``det_clamp``) and 40-59 round scales (discriminant under
+    ``eig_floor``)."""
+    rng = np.random.default_rng(seed)
+    qvec, tvec = ring_cameras(1, width, height, radius=5.0, z=1.0,
+                              seed=seed)[0]
+    focal = 0.9 * max(width, height)
+    cam = make_camera(focal, focal, width, height, qvec, tvec, device=device)
+    means = rng.normal(0.0, 1.2, size=(n, 3))
+    log_scales = np.log(rng.uniform(0.02, 0.25, size=(n, 3)))
+    active = np.ones(n, bool)
+    if edges:
+        center = cam.cam_center.double().cpu().numpy()
+        forward = cam.world2view[:3, 2].double().cpu().numpy()
+        means[:8] = 1.5 * center + rng.normal(0.0, 0.1, size=(8, 3))
+        active[8:12] = False
+        near = 0.2 * (1.0 + np.arange(-4, 4) * 3e-7)
+        means[12:20] = center + near[:, None] * forward
+        log_scales[20:40] = np.log(1e-4)
+        log_scales[40:60] = log_scales[40:60, :1]
+    color = "rgb" if coeffs == 0 else "sh"
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    model = GaussianModel(
+        means=f32(means), log_scales=f32(log_scales),
+        quats=f32(rng.normal(size=(n, 4))),
+        opacity_logits=f32(rng.uniform(-3.0, 4.0, size=(n,))),
+        sh=f32(rng.uniform(0.0, 1.0, size=(n, 1, 3)) if color == "rgb"
+               else rng.normal(0.0, 0.4, size=(n, coeffs, 3))),
+        active=torch.as_tensor(active, device=device), color_space=color)
+    return model, cam
+
+
+def _cotangents(proj, seed, device):
+    """Seeded standard-normal cotangents of the projection's float
+    outputs, on every slot."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {f: torch.randn(getattr(proj, f).shape, generator=gen,
+                           device=device) for f in PROJ_FIELDS}
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -175,16 +250,29 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     args = tp.probe_random_inputs(64, 512, device="cpu")
     assert torch.equal(tp.probe_window(*args),
                        tp.probe_window_reference(*args))
+    model, cam = _projection_scene("cpu", 60, seed=4)
+    probe = torch.zeros((60, 2), requires_grad=True)
+    leaves = [getattr(model, n) for n in PARAM_NAMES] + [probe]
+    got, want = (fn(model, cam, CFG, 2, probe) for fn in (
+        tj.project_gaussians, tj.project_gaussians_reference))
+    for field in PROJ_FIELDS + ("radius", "valid"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    cot = _cotangents(want, 5, "cpu")
+    grads = [torch.autograd.grad([getattr(proj, f) for f in PROJ_FIELDS],
+                                 leaves, [cot[f] for f in PROJ_FIELDS])
+             for proj in (got, want)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
     assert [k.launches for k in KERNELS] == before
 
 
 def test_kernel_build_flags():
     sources = (tr.RASTERIZE_SOURCE, tr.RASTERIZE_BWD_SOURCE,
                tf.FUSED_LOSS_SOURCE, tl.UNTILE_SOURCE, tl.TILE_SOURCE,
-               ts.SSIM_SOURCE, tp.SOURCE, tb.SEGMENT_SUMS_SOURCE)
+               ts.SSIM_SOURCE, tp.SOURCE, tb.SEGMENT_SUMS_SOURCE,
+               tj.PROJECTION_SOURCE)
     assert [k.source for k in KERNELS] == (
-        list(sources[:-2]) + [ts.SSIM_SOURCE] * 2 + [tp.SOURCE] * 2
-        + [tb.SEGMENT_SUMS_SOURCE])
+        list(sources[:-3]) + [ts.SSIM_SOURCE] * 2 + [tp.SOURCE] * 2
+        + [tb.SEGMENT_SUMS_SOURCE] + [tj.PROJECTION_SOURCE] * 2)
     for src in sources:
         assert src.path.is_file()
         flags = cuda_build.NVCC_FLAGS + src.extra_flags
@@ -736,3 +824,232 @@ def test_probe_kernels_match_plain_on_card(inputs, cuda_device):
                        tp.probe_window(starts, counts, padded))
     with pytest.raises(ValueError):
         tp.probe_window(args[0].long(), args[1], rec)
+
+
+@pytest.mark.parametrize("fault", ["float64", "camera_requires_grad",
+                                   "mixed_devices", "not_on_a_card"])
+def test_projection_card_path_refuses(fault, monkeypatch):
+    """The card path of ``project_gaussians`` checks its inputs before it
+    builds or launches anything, and raises on each that J1 and J2 do not
+    take (tensors on the CPU here, so the last check, that they lie on a
+    card, refuses the inputs that pass the others). Inputs on two devices
+    are refused on the CPU path too (a ``meta`` camera stands in for one on
+    the card)."""
+    def no_build(*args):
+        raise AssertionError("the input check let a fault through")
+
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    model, cam = _projection_scene("cpu", 12, seed=2)
+    match = {"float64": "float32", "camera_requires_grad": "requires one",
+             "mixed_devices": "device", "not_on_a_card": "on a card"}[fault]
+    if fault == "float64":
+        model = GaussianModel(**{n: getattr(model, n).detach().double()
+                                 for n in PARAM_NAMES},
+                              active=model.active, color_space="sh")
+    elif fault == "camera_requires_grad":
+        cam = dataclasses.replace(
+            cam, fx=cam.fx.clone().requires_grad_(True))
+    elif fault == "mixed_devices":
+        cam = dataclasses.replace(cam,
+                                  world2view=cam.world2view.to("meta"))
+        with pytest.raises(ValueError, match=match):
+            tj.project_gaussians(model, cam)
+    with pytest.raises(ValueError, match=match):
+        tj.check_card_inputs(model, cam)
+
+
+# name: (gaussians, seed, SH coefficients (0: raw RGB), SH degree of the
+# call (None: the model's), double sigmoid, edges); "cell_*" are the
+# benchmark's cells
+PROJ_CASES = {
+    "rgb": (300, 1, 0, None, False, False),
+    "sh0": (300, 2, 16, 0, False, False),
+    "sh1": (300, 3, 16, 1, False, False),
+    "sh2": (300, 4, 9, None, False, False),   # rows of 27 floats
+    "sh3": (300, 5, 16, None, False, False),
+    "double_sigmoid": (300, 6, 16, None, True, False),
+    "edges": (400, 7, 16, None, False, True),
+    "cell_render": None,
+    "cell_train": None,
+}
+# a large seed, past 32 signed bits, as the benchmark takes them
+CELL_SEED = 3_000_000_019
+# J1's fields that may differ from the plain version's, by at most this
+# many ulps (the rest are bit-equal)
+J1_ULPS = {}
+
+
+def _cell_scene(case, device):
+    """A cell's scene from gsbench/scene.py at ``CELL_SEED``: the 52,363
+    points with SH 3 (higher coefficients normal(0, 0.1), as the render
+    traffic makes them) and, for the train cell, in a pool of 4x the
+    points whose free slots are the benchmark's; four ring cameras at
+    5068x3324. The cells' own init has identity rotations and round 3-NN
+    scales, at which the rotation's gradient is exactly zero: the points
+    here take seeded random rotations and scales of 0.01-0.3 per axis,
+    which exercise it."""
+    from gsbench import scene as gs
+    cfg = json.loads((REPO / "gsbench/configs/treehill_3dgs.json")
+                     .read_text())
+    cfg = dict(cfg, init="constant", scale=0.05)
+    gen = gs.generator(CELL_SEED, device)
+    xyz, rgb = gs.point_cloud(cfg, gen, device)
+    n = xyz.shape[0]
+    capacity = 4 * n if case == "cell_train" else n
+    params, active = gs.initial_params(cfg, xyz, rgb, capacity, gen,
+                                       sh_rest_std=0.1)
+    rng = np.random.default_rng(CELL_SEED)
+    params["log_scales"][:n] = torch.as_tensor(
+        np.log(rng.uniform(0.01, 0.3, size=(n, 3))), dtype=torch.float32)
+    params["quats"][:n] = torch.as_tensor(rng.normal(size=(n, 4)),
+                                          dtype=torch.float32)
+    model = GaussianModel(**params, active=active, color_space="sh")
+    w, h = cfg["width"], cfg["height"]
+    focal = cfg["focal_per_width"] * w
+    cams = [make_camera(focal, focal, w, h, gs.quaternion(r), t,
+                        device=device)
+            for r, t in gs.ring_poses(cfg, 4, CELL_SEED)]
+    return model, cams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PROJ_CASES))
+def test_projection_kernels_match_plain_on_card(case, cuda_device):
+    """J1 against ``project_gaussians_reference`` on the card: radius and
+    valid equal on every gaussian, every float field bit-equal (J1_ULPS
+    names the fields that are not, and by how many ulps). J2 against
+    ``torch.autograd.grad`` of the plain forward on the card, seeded
+    random cotangents on every slot: relative L2 <= 1e-5 per leaf (the
+    same chain rule with its terms added in another order), exact zeros
+    wherever autograd has them (SH coefficients above the degree, colour
+    channels under the clamp), bit for bit on repeat. One launch of J1 per
+    projection and of J2 per backward pass. The cell cases run four
+    cameras each."""
+    if PROJ_CASES[case] is None:
+        model, cams = _cell_scene(case, cuda_device)
+        degree, cfg = None, RasterizerConfig()
+    else:
+        n, seed, coeffs, degree, double, edges = PROJ_CASES[case]
+        model, cam = _projection_scene(cuda_device, n, seed, coeffs, edges)
+        cams = [cam]
+        cfg = RasterizerConfig(compat=CompatConfig(double_sigmoid=double))
+    leaves = [getattr(model, n) for n in PARAM_NAMES]
+    for i, cam in enumerate(cams):
+        before = (tj.PROJECT_FWD.launches, tj.PROJECT_BWD.launches)
+        with torch.no_grad():
+            got = tj.project_gaussians(model, cam, cfg, degree)
+            want = tj.project_gaussians_reference(model, cam, cfg, degree)
+        assert tj.PROJECT_FWD.launches == before[0] + 1
+        assert torch.equal(got.valid, want.valid)
+        assert torch.equal(got.radius, want.radius)
+        assert bool(want.valid.any())
+        if case == "edges":
+            assert not bool(want.valid[:12].any())
+            near = want.depth[12:20]
+            assert bool((near < cfg.frustum_min_z).any())
+            assert bool((near >= cfg.frustum_min_z).any())
+        for field in PROJ_FIELDS:
+            a, b = getattr(got, field), getattr(want, field)
+            assert ulps(a, b) <= J1_ULPS.get(field, 0), (field, ulps(a, b))
+
+        cot = _cotangents(want, i, cuda_device)
+        plain = tj.project_gaussians_reference(model, cam, cfg, degree)
+        want_g = torch.autograd.grad(
+            [getattr(plain, f) for f in PROJ_FIELDS], leaves,
+            [cot[f] for f in PROJ_FIELDS], allow_unused=True)
+        runs = []
+        for _ in range(2):
+            proj = tj.project_gaussians(model, cam, cfg, degree)
+            runs.append(torch.autograd.grad(
+                [getattr(proj, f) for f in PROJ_FIELDS], leaves,
+                [cot[f] for f in PROJ_FIELDS]))
+        assert tj.PROJECT_FWD.launches == before[0] + 3
+        assert tj.PROJECT_BWD.launches == before[1] + 2
+        for name, g, again, w, leaf in zip(PARAM_NAMES, *runs, want_g,
+                                           leaves):
+            w = torch.zeros_like(leaf) if w is None else w
+            assert rel_l2(g, w) <= 1e-5, (name, rel_l2(g, w))
+            assert not bool(g[w == 0].any()), name
+            assert torch.equal(g, again), name
+        if degree is not None and degree < 3:
+            assert not bool(runs[0][4][:, (degree + 1) ** 2:].any())
+
+
+@pytest.mark.cuda
+def test_projection_round_gaussians_rotation_gradient(cuda_device,
+                                                      monkeypatch):
+    """Where a gaussian is round (three equal scales), Sigma = e I does not
+    depend on its rotation: J2 writes exact zeros into the quaternion's
+    gradient, where autograd through the plain chain in float32 leaves
+    zeros and rounding noise. Every gaussian here is round, with a seeded
+    random rotation. The true derivative reads about 0: a float64 autograd
+    of the plain version's rotation part (``covariance_3d_channels``, the
+    quaternion's only way into the outputs), given the float32 chain's
+    cotangent of the six covariance channels, is under 1e-12 of the
+    scales' gradient; the chain's own noise is under 1e-5 of it. J2's other
+    leaves hold to the chain as in the test above."""
+    model, cam = _projection_scene(cuda_device, 400, seed=10)
+    params = {n: getattr(model, n).detach() for n in PARAM_NAMES}
+    params["log_scales"] = params["log_scales"][:, :1].expand(-1, 3)
+    model = GaussianModel(**{n: t.contiguous() for n, t in params.items()},
+                          active=model.active, color_space="sh")
+    leaves = [getattr(model, n) for n in PARAM_NAMES]
+    channels = []
+
+    def capture(log_scales, quats):
+        out = covariance_3d_channels(log_scales, quats)
+        channels.extend(out)
+        return out
+
+    monkeypatch.setattr(tj, "covariance_3d_channels", capture)
+    plain = tj.project_gaussians_reference(model, cam)
+    monkeypatch.undo()
+    assert bool(plain.valid.all())
+    cot = _cotangents(plain, 0, cuda_device)
+    *want, = torch.autograd.grad(
+        [getattr(plain, f) for f in PROJ_FIELDS], leaves + channels,
+        [cot[f] for f in PROJ_FIELDS])
+    want, g_sigma = want[:5], want[5:]
+    ls64 = model.log_scales.detach().double().requires_grad_(True)
+    q64 = model.quats.detach().double().requires_grad_(True)
+    g_ls64, g_q64 = torch.autograd.grad(
+        covariance_3d_channels(ls64, q64), (ls64, q64),
+        [g.double() for g in g_sigma])
+    scale = float(g_ls64.norm())
+    assert float(g_q64.norm()) <= 1e-12 * scale
+    assert float(want[2].norm()) <= 1e-5 * scale
+
+    proj = tj.project_gaussians(model, cam)
+    got = torch.autograd.grad([getattr(proj, f) for f in PROJ_FIELDS],
+                              leaves, [cot[f] for f in PROJ_FIELDS])
+    assert not bool(got[2].any())
+    for name, g, w in zip(PARAM_NAMES, got, want):
+        if name != "quats":
+            assert rel_l2(g, w) <= 1e-5, (name, rel_l2(g, w))
+
+
+@pytest.mark.cuda
+def test_projection_saves_nothing_without_grad(cuda_device):
+    """Under ``torch.no_grad()`` the card's projection launches J1 and
+    saves no tensor for a backward; with grad, its node saves the five
+    parameters and nothing else, and the densify probe's gradient is
+    the mean2d cotangent."""
+    model, cam = _projection_scene(cuda_device, 50, seed=8)
+    packed = []
+
+    def pack(t):
+        packed.append(t)
+        return t
+
+    probe = torch.zeros((50, 2), device=cuda_device, requires_grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with torch.no_grad():
+            proj = tj.project_gaussians(model, cam)
+        assert not packed
+        assert all(getattr(proj, f).grad_fn is None for f in PROJ_FIELDS)
+        proj = tj.project_gaussians(model, cam, mean2d_offset=probe)
+    assert len(packed) == 5
+    assert "ProjectGaussians" in type(proj.depth.grad_fn).__name__
+    g = torch.randn((50, 2), device=cuda_device)
+    d_probe, = torch.autograd.grad(proj.mean2d, probe, g)
+    assert torch.equal(d_probe, g)
