@@ -2,6 +2,12 @@
 cloud, the initial gaussian parameters, the camera poses and the training
 targets. Both sides, the program and the reference, get the same.
 
+A configuration's ``init`` names its scene recipe: ``"knn3"`` or
+``"constant"``, the two built here, or a file ``scenes/<init>.py`` that
+defines ``initial_params(cfg, xyz, rgb, capacity, gen, sh_rest_std)`` and
+may define ``point_cloud(cfg, gen, device)``; both sides are fed from it,
+so it imports nothing of the program.
+
 The point cloud follows the recipe of ``random_point_cloud`` in the
 repository's synthetic scenes (80% normal about the origin with a standard
 deviation of a quarter of the extent, 20% uniform in the extent's cube,
@@ -14,11 +20,29 @@ channel, each with coefficients drawn from the seed.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from gsbench.harness import load_module
+
 SH_C0 = 0.28209479177387814
+SCENES = Path(__file__).resolve().parent / "scenes"
+BUILT_IN = ("knn3", "constant")
+
+
+def recipe(init: str):
+    """The module of the recipe file ``scenes/<init>.py``, or None for a
+    built-in recipe; any other ``init`` raises, naming the recipes."""
+    if init in BUILT_IN:
+        return None
+    path = SCENES / f"{init}.py"
+    if path.parent != SCENES or not path.is_file():
+        files = sorted(p.stem for p in SCENES.glob("*.py"))
+        raise ValueError(f"unknown init {init!r}: the recipes are "
+                         f"{list(BUILT_IN) + files}")
+    return load_module(path)
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -26,7 +50,11 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def point_cloud(cfg: dict, gen: torch.Generator, device):
-    """(xyz (N, 3) float32, rgb (N, 3) float32 in 0-255)."""
+    """(xyz (N, 3) float32, rgb (N, 3) float32 in 0-255): the recipe's
+    own, where its file defines ``point_cloud``."""
+    module = recipe(cfg["init"])
+    if module is not None and hasattr(module, "point_cloud"):
+        return module.point_cloud(cfg, gen, device)
     n, extent = cfg["num_gaussians"], float(cfg["extent"])
     n_core = int(n * 0.8)
     core = torch.randn((n_core, 3), generator=gen, device=device) * (
@@ -57,10 +85,32 @@ def initial_params(cfg: dict, xyz: torch.Tensor, rgb: torch.Tensor,
                    capacity: int, gen: torch.Generator,
                    sh_rest_std: float = 0.0):
     """(params, active) of a pool of ``capacity`` slots, the first N the
-    points: the configuration's init (``"init"``: ``"knn3"`` scales each
-    point by its mean 3-NN distance, ``"constant"`` by ``scale``),
-    identity rotations, ``opacity``, the colours as the DC SH coefficient
-    and the higher coefficients 0 (or normal with ``sh_rest_std``). Free
+    points, by the configuration's recipe (``"init"``): ``"knn3"`` scales
+    each point by its mean 3-NN distance, ``"constant"`` by ``scale``, both
+    round and unrotated on ``pool``; a recipe file's ``initial_params``
+    returns the same five leaves."""
+    module = recipe(cfg["init"])
+    if module is not None:
+        params, active = module.initial_params(cfg, xyz, rgb, capacity, gen,
+                                               sh_rest_std)
+        _check_pool(cfg, params, active, capacity, xyz.device.type)
+        return params, active
+    params, active = pool(cfg, xyz, rgb, capacity, gen, sh_rest_std)
+    n = xyz.shape[0]
+    if cfg["init"] == "knn3":
+        d = torch.clamp(knn_mean_distance(xyz), min=1e-7)
+        params["log_scales"][:n] = torch.log(d)[:, None]
+    else:
+        params["log_scales"][:n] = math.log(cfg["scale"])
+    return params, active
+
+
+def pool(cfg: dict, xyz: torch.Tensor, rgb: torch.Tensor, capacity: int,
+         gen: torch.Generator, sh_rest_std: float = 0.0):
+    """(params, active) of a pool of ``capacity`` slots, the first N the
+    points: identity rotations, ``opacity``, the colours as the DC SH
+    coefficient and the higher coefficients 0 (or normal with
+    ``sh_rest_std``), and every scale 1e-3 for the recipe to set. Free
     slots: position 0, scale 1e-3, opacity logit -20, colour 0."""
     n = xyz.shape[0]
     dev = xyz.device
@@ -68,11 +118,6 @@ def initial_params(cfg: dict, xyz: torch.Tensor, rgb: torch.Tensor,
     means = torch.zeros((capacity, 3), device=dev)
     means[:n] = xyz
     log_scales = torch.full((capacity, 3), math.log(1e-3), device=dev)
-    if cfg["init"] == "knn3":
-        d = torch.clamp(knn_mean_distance(xyz), min=1e-7)
-        log_scales[:n] = torch.log(d)[:, None]
-    else:
-        log_scales[:n] = math.log(cfg["scale"])
     quats = torch.zeros((capacity, 4), device=dev)
     quats[:, 0] = 1.0
     op = cfg["opacity"]
@@ -87,6 +132,25 @@ def initial_params(cfg: dict, xyz: torch.Tensor, rgb: torch.Tensor,
     active[:n] = True
     return dict(means=means, log_scales=log_scales, quats=quats,
                 opacity_logits=logits, sh=sh), active
+
+
+def _check_pool(cfg: dict, params: dict, active: torch.Tensor,
+                capacity: int, device_type: str) -> None:
+    """A recipe's pool has the built-ins' leaves, shapes and types: the
+    port's kernels read them by their strides."""
+    k = (cfg["sh_degree"] + 1) ** 2
+    shapes = dict(means=(capacity, 3), log_scales=(capacity, 3),
+                  quats=(capacity, 4), opacity_logits=(capacity,),
+                  sh=(capacity, k, 3))
+    got = {name: (tuple(t.shape), t.dtype, t.device.type)
+           for name, t in params.items()}
+    want = {name: (shape, torch.float32, device_type)
+            for name, shape in shapes.items()}
+    if got != want or (tuple(active.shape), active.dtype) != (
+            (capacity,), torch.bool):
+        raise ValueError(f"recipe {cfg['init']!r} returned {got}, active "
+                         f"{tuple(active.shape)} {active.dtype}; want "
+                         f"{want}, active ({capacity},) torch.bool")
 
 
 def extent_of(xyz: torch.Tensor) -> float:

@@ -1,6 +1,6 @@
 """Nothing of the benchmark imports JAX or the JAX package, its reference
-imports nothing of the program, and a run that finds JAX or the JAX
-package loaded prints no result."""
+and its scene recipes import nothing of the program, and a run that finds
+JAX or the JAX package loaded prints no result."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import pytest
 from gsbench import harness as H
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "intro_to_gaussian_splatting_tpu"}
+# what feeds or judges both sides imports nothing of the program either
+BOTH_SIDES = ("reference", "scenes")
 
 
 def _imports(path):
@@ -24,20 +26,37 @@ def _imports(path):
             yield node.module
 
 
+def _broken(path, root=H.HERE) -> set:
+    """The imports of ``path`` that the rule of its directory forbids."""
+    tops = {name.split(".")[0] for name in _imports(path)}
+    forbidden = set(FORBIDDEN)
+    if path.relative_to(root).parts[0] in BOTH_SIDES:
+        forbidden.add(H.PACKAGE)
+    return tops & forbidden
+
+
 SOURCES = sorted(p for p in H.HERE.rglob("*.py") if "_build" not in p.parts)
 
 
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(H.HERE)))
 def test_no_jax_and_no_program_in_the_reference(path):
-    tops = {name.split(".")[0] for name in _imports(path)}
-    assert not tops & FORBIDDEN, path
-    if "reference" in path.parts:
-        assert H.PACKAGE not in tops, path
+    assert not _broken(path), path
     # nothing reads the JAX package's benchmark or its records
     text = path.read_text()
     for name in ("BENCH_" + "r", "bench" + ".py"):
         assert name not in text, path
+
+
+@pytest.mark.parametrize("sub, caught", [("scenes", True),
+                                         ("reference", True),
+                                         ("traffic", False)])
+def test_the_program_is_caught_where_both_sides_are_fed(tmp_path, sub,
+                                                        caught):
+    path = tmp_path / sub / "planted.py"
+    path.parent.mkdir()
+    path.write_text(f"from {H.PACKAGE}.ops import render\n")
+    assert _broken(path, tmp_path) == ({H.PACKAGE} if caught else set())
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):

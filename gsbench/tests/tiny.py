@@ -4,12 +4,15 @@ Train cells: 300 gaussians, 64x48 pixels, a closer ring (extent 2, radius
 5), pairs_per_gaussian 64. Render cells: 2,000 gaussians at 800x528 in
 the configuration's own geometry and pool, so that the pixel positions
 carry the precision the control takes away. The window is a second long.
+The cell's files are found under ``root``, the benchmark's directory by
+default.
 """
 
 from __future__ import annotations
 
 import copy
 import time
+from pathlib import Path
 
 import torch
 
@@ -17,9 +20,9 @@ from gsbench import harness as H
 
 
 def tiny_cell(name: str, seed: int = 5, trace: bool = False,
-              device: str = "cpu") -> H.Cell:
-    w = H.load_json(H.HERE / "workloads" / f"{name}.json")
-    cfg = H.load_json(H.HERE / "configs" / f"{w['config']}.json")
+              device: str = "cpu", root: Path = H.HERE) -> H.Cell:
+    w = H.load_json(root / "workloads" / f"{name}.json")
+    cfg = H.load_json(root / "configs" / f"{w['config']}.json")
     p = copy.deepcopy(w["params"])
     if w["traffic"] == "train":
         cfg.update(num_gaussians=300, width=64, height=48, extent=2.0,
