@@ -14,6 +14,9 @@
   7. gather the records into pair order, feature-major (16, MP), with
      means and bboxes in the owning tile's local pixel frame.
 
+Steps 1-3 (per gaussian) run in the span ``order`` and steps 4-7 (per
+pair slot) in the span ``pairs``, both inside the caller's ``bin``.
+
 The gather's gradient sums each gaussian's pair gradients. PyTorch's own
 indexing backward would scatter-add them with atomics on the card, in an
 order that changes from run to run. In emission order each gaussian's
@@ -52,6 +55,7 @@ from intro_to_gaussian_splatting_tpu_torch.ops.projection import (
     ProjectedGaussians,
     pack_records,
 )
+from intro_to_gaussian_splatting_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,85 +245,88 @@ def bin_gaussians(
     max_pairs = round_up(max_pairs, config.chunk_size)
     mp_alloc = max_pairs + config.chunk_size   # + one sentinel chunk
 
-    # 1. depth sort, invalid last
-    depth_key = torch.where(proj.valid, proj.depth.detach(), float("inf"))
-    order = torch.argsort(depth_key, stable=True)
-    mean2d = proj.mean2d.detach()[order]
-    radius = proj.radius.detach()[order]
-    valid = proj.valid[order]
+    with span("order"):
+        # 1. depth sort, invalid last
+        depth_key = torch.where(proj.valid, proj.depth.detach(), float("inf"))
+        order = torch.argsort(depth_key, stable=True)
+        mean2d = proj.mean2d.detach()[order]
+        radius = proj.radius.detach()[order]
+        valid = proj.valid[order]
 
-    min_x = torch.floor(mean2d[:, 0] - radius)
-    max_x = torch.ceil(mean2d[:, 0] + radius)
-    min_y = torch.floor(mean2d[:, 1] - radius)
-    max_y = torch.ceil(mean2d[:, 1] + radius)
+        min_x = torch.floor(mean2d[:, 0] - radius)
+        max_x = torch.ceil(mean2d[:, 0] + radius)
+        min_y = torch.floor(mean2d[:, 1] - radius)
+        max_y = torch.ceil(mean2d[:, 1] + radius)
 
-    # 2. tile spans; the reference's inclusive overlap test admits a bbox
-    # touching the first pixel of the next tile
-    if config.compat.inclusive_tile_overlap:
-        tx0 = torch.ceil(min_x / ts).to(torch.int32) - 1
-        ty0 = torch.ceil(min_y / ts).to(torch.int32) - 1
-    else:
-        tx0 = torch.floor(min_x / ts).to(torch.int32)
-        ty0 = torch.floor(min_y / ts).to(torch.int32)
-    tx1 = torch.floor(max_x / ts).to(torch.int32)
-    ty1 = torch.floor(max_y / ts).to(torch.int32)
-    # intersect with the grid; only the outward bound is clamped per side,
-    # so a bbox fully off-screen gets span 0
-    tx0 = torch.clamp(tx0, min=0).to(i64)
-    ty0 = torch.clamp(ty0, min=0).to(i64)
-    tx1 = torch.clamp(tx1, max=ntx - 1).to(i64)
-    ty1 = torch.clamp(ty1, max=nty - 1).to(i64)
-    span_x = torch.clamp(tx1 - tx0 + 1, 0, config.max_span)
-    span_y = torch.clamp(ty1 - ty0 + 1, 0, config.max_span)
-    counts = torch.where(valid, span_x * span_y, 0)
+        # 2. tile spans; the reference's inclusive overlap test admits a bbox
+        # touching the first pixel of the next tile
+        if config.compat.inclusive_tile_overlap:
+            tx0 = torch.ceil(min_x / ts).to(torch.int32) - 1
+            ty0 = torch.ceil(min_y / ts).to(torch.int32) - 1
+        else:
+            tx0 = torch.floor(min_x / ts).to(torch.int32)
+            ty0 = torch.floor(min_y / ts).to(torch.int32)
+        tx1 = torch.floor(max_x / ts).to(torch.int32)
+        ty1 = torch.floor(max_y / ts).to(torch.int32)
+        # intersect with the grid; only the outward bound is clamped per side,
+        # so a bbox fully off-screen gets span 0
+        tx0 = torch.clamp(tx0, min=0).to(i64)
+        ty0 = torch.clamp(ty0, min=0).to(i64)
+        tx1 = torch.clamp(tx1, max=ntx - 1).to(i64)
+        ty1 = torch.clamp(ty1, max=nty - 1).to(i64)
+        span_x = torch.clamp(tx1 - tx0 + 1, 0, config.max_span)
+        span_y = torch.clamp(ty1 - ty0 + 1, 0, config.max_span)
+        counts = torch.where(valid, span_x * span_y, 0)
 
-    # 3. slot offsets; the gaussians that fit entirely form a prefix of the
-    # depth order, so the dropped set is a far-to-near suffix
-    ends = torch.cumsum(counts, 0)                              # offsets[1:]
-    starts = ends - counts                                      # offsets[:-1]
-    total = ends[-1]
-    full = ends <= max_pairs
-    total_emit = int(torch.max(torch.where(full, ends, 0)))
+        # 3. slot offsets; the gaussians that fit entirely form a prefix of the
+        # depth order, so the dropped set is a far-to-near suffix
+        ends = torch.cumsum(counts, 0)                          # offsets[1:]
+        starts = ends - counts                                  # offsets[:-1]
+        total = ends[-1]
+        full = ends <= max_pairs
+        total_emit = int(torch.max(torch.where(full, ends, 0)))
 
-    # 4. ragged expand: slot p belongs to depth rank #{i : ends[i] <= p}
-    p = torch.arange(mp_alloc, dtype=i64, device=dev)
-    rank = torch.clamp(torch.searchsorted(ends, p, right=True), 0, n - 1)
-    k = p - starts[rank]
-    sx_span = torch.clamp(span_x[rank], min=1)
-    tile_id = (ty0[rank] + k // sx_span) * ntx + (tx0[rank] + k % sx_span)
-    del k, sx_span
-    gt = config.group_tiles
-    num_groups = num_groups_for(num_tiles, config)
-    # non-emitted slots take a sentinel key past every real tile and group
-    sentinel = num_groups * gt
-    tile_key = torch.where(p < total_emit, tile_id, sentinel)
-    del tile_id, p
+    with span("pairs"):
+        # 4. ragged expand: slot p belongs to depth rank #{i : ends[i] <= p}
+        p = torch.arange(mp_alloc, dtype=i64, device=dev)
+        rank = torch.clamp(torch.searchsorted(ends, p, right=True), 0, n - 1)
+        k = p - starts[rank]
+        sx_span = torch.clamp(span_x[rank], min=1)
+        tile_id = (ty0[rank] + k // sx_span) * ntx + (tx0[rank] + k % sx_span)
+        del k, sx_span
+        gt = config.group_tiles
+        num_groups = num_groups_for(num_tiles, config)
+        # non-emitted slots take a sentinel key past every real tile and group
+        sentinel = num_groups * gt
+        tile_key = torch.where(p < total_emit, tile_id, sentinel)
+        del tile_id, p
 
-    # 5. stable sort by tile keeps depth order within each tile
-    sorted_keys, perm = torch.sort(tile_key, stable=True)
-    del tile_key
-    sorted_rank = rank[perm]
-    del rank
-    pair_valid = sorted_keys < num_tiles
+        # 5. stable sort by tile keeps depth order within each tile
+        sorted_keys, perm = torch.sort(tile_key, stable=True)
+        del tile_key
+        sorted_rank = rank[perm]
+        del rank
+        pair_valid = sorted_keys < num_tiles
 
-    # 6. per-tile and per-group ranges of the sorted stream
-    tile_bounds = torch.searchsorted(
-        sorted_keys, torch.arange(num_tiles + 1, dtype=i64, device=dev))
-    tile_starts = tile_bounds[:-1]
-    tile_counts = tile_bounds[1:] - tile_starts
-    group_starts = torch.searchsorted(
-        sorted_keys, torch.arange(num_groups + 1, dtype=i64, device=dev) * gt)
+        # 6. per-tile and per-group ranges of the sorted stream
+        tile_bounds = torch.searchsorted(
+            sorted_keys, torch.arange(num_tiles + 1, dtype=i64, device=dev))
+        tile_starts = tile_bounds[:-1]
+        tile_counts = tile_bounds[1:] - tile_starts
+        group_starts = torch.searchsorted(
+            sorted_keys,
+            torch.arange(num_groups + 1, dtype=i64, device=dev) * gt)
 
-    # 7. gather records into pair order (differentiable), feature-major,
-    # with means/bboxes in the owning tile's local frame
-    records_rank = pack_records(proj)[:, order]                 # (16, N)
-    total_t = torch.as_tensor(total_emit, device=dev)
-    lo = torch.minimum(starts, total_t)
-    hi = torch.minimum(ends, total_t)
-    pair_records = _GatherPairs.apply(records_rank, sorted_rank, perm,
-                                      sorted_keys, pair_valid, lo, hi, ntx,
-                                      ts, total_emit)
-    del perm
+        # 7. gather records into pair order (differentiable), feature-major,
+        # with means/bboxes in the owning tile's local frame
+        records_rank = pack_records(proj)[:, order]             # (16, N)
+        total_t = torch.as_tensor(total_emit, device=dev)
+        lo = torch.minimum(starts, total_t)
+        hi = torch.minimum(ends, total_t)
+        pair_records = _GatherPairs.apply(records_rank, sorted_rank, perm,
+                                          sorted_keys, pair_valid, lo, hi, ntx,
+                                          ts, total_emit)
+        del perm
 
     return TileBins(
         pair_records=pair_records,

@@ -686,7 +686,11 @@ class Trainer:
                 self._densify_on_mesh()
             self.dstate = D.DensifyState.zero(self.model.capacity,
                                               self.device)
-        if (t.opacity_reset_interval and self.step > 0
+        # opacities reset only while the Trainer densifies: up to and
+        # including ``densify_stop``, the bound of the densify passes above.
+        # 3DGS's train.py resets inside ``iteration < densify_until_iter``,
+        # one step sooner: at ``densify_stop`` itself it does neither
+        if (t.opacity_reset_interval and 0 < self.step <= t.densify_stop
                 and self.step % t.opacity_reset_interval == 0):
             D.reset_opacity(self.model)
 

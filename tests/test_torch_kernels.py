@@ -871,6 +871,7 @@ PROJ_CASES = {
     "edges": (400, 7, 16, None, False, True),
     "cell_render": None,
     "cell_train": None,
+    "cell_30k": None,
 }
 # a large seed, past 32 signed bits, as the benchmark takes them
 CELL_SEED = 3_000_000_019
@@ -887,10 +888,18 @@ def _cell_scene(case, device):
     5068x3324. The cells' own init has identity rotations and round 3-NN
     scales, at which the rotation's gradient is exactly zero: the points
     here take seeded random rotations and scales of 0.01-0.3 per axis,
-    which exercise it."""
+    which exercise it. ``cell_30k`` is the treehill_3dgs_30k
+    configuration's own scene, whole: 3.1M anisotropic, rotated gaussians
+    of its recipe at 1267x831."""
     from gsbench import scene as gs
-    cfg = json.loads((REPO / "gsbench/configs/treehill_3dgs.json")
-                     .read_text())
+    name = "treehill_3dgs_30k" if case == "cell_30k" else "treehill_3dgs"
+    cfg = json.loads((REPO / f"gsbench/configs/{name}.json").read_text())
+    if case == "cell_30k":
+        gen = gs.generator(CELL_SEED, device)
+        xyz, rgb = gs.point_cloud(cfg, gen, device)
+        params, active = gs.initial_params(cfg, xyz, rgb, xyz.shape[0], gen,
+                                           sh_rest_std=0.1)
+        return _cell_model_and_cameras(cfg, params, active, device)
     cfg = dict(cfg, init="constant", scale=0.05)
     gen = gs.generator(CELL_SEED, device)
     xyz, rgb = gs.point_cloud(cfg, gen, device)
@@ -903,6 +912,11 @@ def _cell_scene(case, device):
         np.log(rng.uniform(0.01, 0.3, size=(n, 3))), dtype=torch.float32)
     params["quats"][:n] = torch.as_tensor(rng.normal(size=(n, 4)),
                                           dtype=torch.float32)
+    return _cell_model_and_cameras(cfg, params, active, device)
+
+
+def _cell_model_and_cameras(cfg, params, active, device):
+    from gsbench import scene as gs
     model = GaussianModel(**params, active=active, color_space="sh")
     w, h = cfg["width"], cfg["height"]
     focal = cfg["focal_per_width"] * w
@@ -922,12 +936,15 @@ def test_projection_kernels_match_plain_on_card(case, cuda_device):
     random cotangents on every slot: relative L2 <= 1e-5 per leaf (the
     same chain rule with its terms added in another order), exact zeros
     wherever autograd has them (SH coefficients above the degree, colour
-    channels under the clamp), bit for bit on repeat. One launch of J1 per
+    channels under the clamp; at the 30k configuration's 3.1M gaussians
+    all but a few accidental ones), bit for bit on repeat. One launch of J1 per
     projection and of J2 per backward pass. The cell cases run four
     cameras each."""
     if PROJ_CASES[case] is None:
         model, cams = _cell_scene(case, cuda_device)
-        degree, cfg = None, RasterizerConfig()
+        # the 30k configuration's 2D dilation, 3DGS's low-pass
+        dilation = 0.3 if case == "cell_30k" else 0.0
+        degree, cfg = None, RasterizerConfig(cov2d_dilation=dilation)
     else:
         n, seed, coeffs, degree, double, edges = PROJ_CASES[case]
         model, cam = _projection_scene(cuda_device, n, seed, coeffs, edges)
@@ -969,10 +986,27 @@ def test_projection_kernels_match_plain_on_card(case, cuda_device):
                                            leaves):
             w = torch.zeros_like(leaf) if w is None else w
             assert rel_l2(g, w) <= 1e-5, (name, rel_l2(g, w))
-            assert not bool(g[w == 0].any()), name
+            if case == "cell_30k":
+                # over 3.1M gaussians a float32 sum of mixed-sign terms in
+                # autograd's chain lands on exactly 0 now and then (about
+                # 2**-23 of the sums); J2, adding in another order, leaves
+                # an ulp of its terms there (one of 9.3M scale entries,
+                # -2.2e-9, on the card). A few such strays pass, each a
+                # rounding of the leaf's size; a J2 fault at a structural
+                # zero (a culled gaussian, a clamped channel) leaves many
+                stray = g[(w == 0) & (g != 0)]
+                assert stray.numel() <= 16, (name, stray.numel())
+                assert bool((stray.abs() <= 1e-6 * w.abs().max()).all()), (
+                    name, stray)
+            else:
+                assert not bool(g[w == 0].any()), name
             assert torch.equal(g, again), name
         if degree is not None and degree < 3:
             assert not bool(runs[0][4][:, (degree + 1) ** 2:].any())
+        if case == "cell_30k":
+            # anisotropic, rotated: the rotation carries a gradient
+            quats = runs[0][PARAM_NAMES.index("quats")][want.valid]
+            assert float((quats != 0).all(dim=1).float().mean()) > 0.99
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The port's spans (utils/profiling.py ``span`` / ``spans``) on the CPU:
 nothing is recorded outside a profiler session; inside one a training
-step records ``step`` > {``render`` > {``project``, ``bin``,
-``rasterize``}, ``backward``, ``optimizer``} and a view ``view`` >
-{``project``, ``bin``, ``rasterize``}, each child inside its parent and
-sharing its unit; recording changes no bit of the training."""
+step records ``step`` > {``render`` > {``project``, ``bin`` > {``order``,
+``pairs``}, ``rasterize``}, ``backward``, ``optimizer``} and a view
+``view`` > {``project``, ``bin`` > {``order``, ``pairs``}, ``rasterize``},
+each child inside its parent and sharing its unit; recording changes no
+bit of the training."""
 
 import dataclasses
 
@@ -25,7 +26,7 @@ RCFG = RasterizerConfig(chunk_size=128, pairs_per_gaussian=32, group_tiles=2,
                         groups_per_step=1)
 TCFG = TrainConfig(iterations=2, densify_start=10 ** 9,
                    opacity_reset_interval=0)
-RENDER = {"project": {}, "bin": {}, "rasterize": {}}
+RENDER = {"project": {}, "bin": {"order": {}, "pairs": {}}, "rasterize": {}}
 TREES = {
     "train": {"step": {"render": RENDER, "backward": {}, "optimizer": {}}},
     "view": {"view": RENDER},
@@ -96,7 +97,7 @@ def test_spans_nest_by_stage(kind, trained):
     if kind == "train":
         records = trained[1]
         steps = [s for s in records if s.name == "step"]
-        assert len(steps) == 2 and len(records) == 2 * 7
+        assert len(steps) == 2 and len(records) == 2 * 9
         for step in steps:
             _check_tree([s for s in records if s.unit == step.id],
                         TREES[kind])
@@ -106,7 +107,7 @@ def test_spans_nest_by_stage(kind, trained):
     with _profiled(), torch.no_grad():
         render.render(model, cam, RCFG)
     records = [s for s in U.spans() if s.id > last]
-    assert len(records) == 4
+    assert len(records) == 6
     _check_tree(records, TREES[kind])
 
 
