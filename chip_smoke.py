@@ -58,13 +58,17 @@ JAX, and prints one JSON line per phase:
                   scenes), bounds, plain times and (B5-tile, timed as
                   B5-untile) the library call's; the step's gradients
                   from two backward passes bit for bit equal;
-  g1_kernel       G1, the gather's backward, at the training benchmark's
-                  shapes (the KNN init in a pool of 4x its gaussians, 256
-                  pairs per gaussian: 53.6M slots) on a seeded cotangent:
-                  against its plain version (the library chain it
-                  replaced) and the float64 block sums, exact zeros, bit
-                  for bit on repeat, one launch per call; its ms beside
-                  its bound and the plain chain's ms;
+  g1_kernel       G1, the gather's backward, at two shapes (one line
+                  each, ``shape``): the treehill_3dgs train cell's (the
+                  KNN init in a pool of 4x its gaussians, 256 pairs per
+                  gaussian: 53.6M slots) and the treehill_3dgs_30k
+                  cell's (3.1M gaussians of its scene recipe at
+                  1267x831, 16 pairs per gaussian: 49.6M slots), on a
+                  seeded cotangent: against its plain version (the
+                  library chain it replaced) and the float64 block sums,
+                  exact zeros, bit for bit on repeat, each rank's sums in
+                  its gaussian's column, one launch per call; its ms
+                  beside its bound and the plain chain's ms;
   projection_kernels_render, projection_kernels_train  J1 and J2 at the
                   render cell's 52,363 gaussians and the train cell's
                   pool of 4x, SH 3, seeded rotations, scales and
@@ -159,8 +163,8 @@ benchmark's to read from the program's spans (``gsbench/``).
 Then the nvidia-smi line, the kernels summary line (B1 and B5-untile from
 the ref_init render, B2 and B3 from the ref_init training run, B5-tile from
 the ref_init render gradient, B4a and B4b from the split-loss run, B4c from
-the one-pass SSIM path, P1 and P2 from the probe script, G1 from its phase,
-J1 and J2 from theirs at the train cell's shape)
+the one-pass SSIM path, P1 and P2 from the probe script, G1 at both of
+its phase's shapes, J1 and J2 from theirs at the train cell's shape)
 and, last, the contract line. Any failed check exits non-zero before the
 last line; with no card, or outside a checkout, it exits non-zero and
 prints no result.
@@ -671,46 +675,51 @@ def train_kernels(torch, M, scene, model, cam, target, g_img, cfg,
     return rows
 
 
-def g1_kernel(torch, M, model, cam, card):
-    """G1, the gather's backward, at the training benchmark's shapes:
-    ``model`` binned at 256 pairs per gaussian with the projection's
+def g1_kernel(torch, M, shape, model, cam, cfg, card):
+    """G1, the gather's backward, at a benchmark cell's shape (``shape``
+    names it): ``model`` binned under ``cfg`` with the projection's
     gradient fields as leaves, a seeded cotangent in every row and slot
     (G1 reads only the gradient rows of the emitted slots). G1 against
     its plain version (the library chain it replaced; relative L2 1e-5),
     both against the float64 block sums (G1 no further off than the plain
     version, or within 1e-6), exact zeros outside the gradient rows and
-    for gaussians with no pairs, bit for bit on repeat, one launch per
-    call; profiler and CUDA-event ms (each of its two kernels apart), its
-    bound (bytes: the 10 gradient rows and perm of each emitted slot read,
-    lo and hi read and 16 floats written per gaussian) and the plain
-    chain's ms. Returns its kernel row."""
+    for gaussians with no pairs, bit for bit on repeat, each depth rank's
+    sums in its gaussian's column (bit for bit those written by rank given
+    the identity order), one launch per call; profiler and CUDA-event ms
+    (each of its kernels apart), its bound (bytes: the 10 gradient rows and
+    perm of each emitted slot read, order, lo and hi read and 16 floats
+    written per gaussian) and the plain chain's ms. Returns its kernel
+    row."""
     B = M.B
-    cfg = M.RasterizerConfig(pairs_per_gaussian=256, group_tiles=16,
-                             groups_per_step=16)
     with torch.no_grad():
         proj = M.project_gaussians(model, cam, cfg)
     leaves = {f: getattr(proj, f).requires_grad_(True)
               for f in ("mean2d", "conic", "opacity", "color", "depth")}
     bins = M.bin_gaussians(dataclasses.replace(proj, **leaves), cam.width,
                            cam.height, cfg)
-    node = bins.pair_records.grad_fn   # the gather's: perm, lo, hi saved
-    perm, lo, hi = node.saved_tensors
+    node = bins.pair_records.grad_fn   # the gather's: order, perm, lo, hi
+    order, perm, lo, hi = node.saved_tensors
     total, n, mp = node.total_emit, lo.shape[0], perm.shape[0]
     del bins, proj, leaves
     gen = torch.Generator(device="cuda").manual_seed(19)
     g = torch.randn((16, mp), generator=gen, device="cuda")
-    args = (g, perm, lo, hi, n)
+    args = (g, order, perm, lo, hi)
     before = B.SEGMENT_SUMS.launches
     d = B.gather_pairs_backward(*args, total)
     again = B.gather_pairs_backward(*args, total)
     launched = B.SEGMENT_SUMS.launches - before
+    by_rank = B.gather_pairs_backward(
+        g, torch.arange(n, device="cuda"), perm, lo, hi, total)
+    through_order = torch.equal(d[:, order], by_rank)
+    del by_rank
     plain = B.gather_pairs_backward_reference(*args)
     rows = list(M.GRAD_ROWS)
     inv = torch.empty(total, dtype=torch.int64, device="cuda")
     inv[perm[:total]] = torch.arange(total, device="cuda")
     cum = torch.nn.functional.pad(
         torch.cumsum(g[rows][:, inv].double(), dim=1), (1, 0))
-    exact = cum[:, hi] - cum[:, lo]
+    exact = torch.empty((len(rows), n), dtype=torch.float64, device="cuda")
+    exact[:, order] = cum[:, hi] - cum[:, lo]
     del inv, cum
     torch.cuda.synchronize()
     others = [r for r in range(16) if r not in M.GRAD_ROWS]
@@ -718,17 +727,18 @@ def g1_kernel(torch, M, model, cam, card):
     err = rel_l2(torch, d[rows], exact)
     plain_err = rel_l2(torch, plain[rows], exact)
     vs_plain = rel_l2(torch, d, plain)
-    zeros = not d[others].any() and not d[:, empty].any()
+    zeros = not d[others].any() and not d[:, order[empty]].any()
     repeat = torch.equal(d, again)
     del exact, again
     times = profiled(M, lambda: B.gather_pairs_backward(*args, total),
-                     ("segment_sums_kernel", "to_emission_kernel"))
+                     ("segment_sums_kernel", "to_emission_kernel",
+                      "blocks_by_gaussian_kernel"))
     plain_ms = M.U.cuda_ms(lambda: B.gather_pairs_backward_reference(*args),
                            iters=3)
-    nbytes = 48 * total + 80 * n
+    nbytes = 48 * total + 88 * n
     bound, by = bound_of(M, nbytes, 0)
     pairs = (hi - lo)[~empty]
-    row = dict(name="G1 segment_sums", route="cuda",
+    row = dict(name=f"G1 segment_sums {shape}", route="cuda",
                source=f"{PACKAGE}/csrc/segment_sums.cu",
                # no Pallas kernel: the JAX package's gather transpose is
                # XLA ops
@@ -736,14 +746,15 @@ def g1_kernel(torch, M, model, cam, card):
                max_abs_err=float((d - plain).abs().max()), **times,
                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                library_ms=None)
-    emit("g1_kernel", kernels=[row], gaussians=n, pool_slots=mp,
+    emit("g1_kernel", shape=shape, kernels=[row], gaussians=n,
+         pool_slots=mp,
          emitted_pairs=total, bytes=nbytes,
          pairs_per_gaussian=dict(mean=float(pairs.double().mean()),
                                  max=int(pairs.max())),
          gaussians_with_pairs=int(pairs.numel()),
          rel_l2_vs_float64=err, plain_rel_l2_vs_float64=plain_err,
          rel_l2_vs_plain=vs_plain, exact_zeros=zeros,
-         bit_equal_on_repeat=repeat,
+         bit_equal_on_repeat=repeat, by_rank_through_order=through_order,
          library_ms_null_reason="no single PyTorch call computes this "
                                 "function; its plain version is a "
                                 "composition of many",
@@ -751,11 +762,30 @@ def g1_kernel(torch, M, model, cam, card):
                    "than it from the float64 sums, or within 1e-6",
          card=card)
     check(vs_plain <= 1e-5 and err <= max(plain_err, 1e-6),
-          f"g1_kernel: G1 disagrees: {vs_plain} against the plain version, "
+          f"g1_kernel {shape}: G1 disagrees: {vs_plain} against the plain version, "
           f"{err} against the float64 sums (plain {plain_err})")
-    check(zeros and repeat and launched == 2,
-          f"g1_kernel: zeros {zeros}, repeat {repeat}, launches {launched}")
+    check(zeros and repeat and through_order and launched == 2,
+          f"g1_kernel {shape}: zeros {zeros}, repeat {repeat}, through the order "
+          f"{through_order}, launches {launched}")
     return row
+
+
+def scene_30k(M, seed=3_000_000_019):
+    """(model, camera) of the treehill_3dgs_30k configuration on the card:
+    its 3.1M gaussians from its scene recipe at ``seed`` and its first
+    ring camera at 1267x831."""
+    cfg = json.loads(
+        (REPO / "gsbench/configs/treehill_3dgs_30k.json").read_text())
+    gen = M.GS.generator(seed, "cuda")
+    xyz, rgb = M.GS.point_cloud(cfg, gen, "cuda")
+    params, active = M.GS.initial_params(cfg, xyz, rgb, xyz.shape[0], gen,
+                                         sh_rest_std=0.1)
+    w, h = cfg["width"], cfg["height"]
+    focal = cfg["focal_per_width"] * w
+    r, t = M.GS.ring_poses(cfg, 1, seed)[0]
+    cam = M.make_camera(focal, focal, w, h, M.GS.quaternion(r), t,
+                        device="cuda")
+    return M.GaussianModel(**params, active=active, color_space="sh"), cam
 
 
 def ulps(torch, got, want) -> int:
@@ -1884,12 +1914,13 @@ def main() -> int:
         multihost as MH, sharded as SP,
     )
     from gsbench import counts as K
+    from gsbench import scene as GS
 
     import numpy as np
 
     M = types.SimpleNamespace(
         B=B, R=R, L=L, FL=FL, S=S, D=D, T=T, P=P, PK=PK, C=C, U=U, E=E,
-        LS=LS, K=K, J=J,
+        LS=LS, K=K, J=J, GS=GS, make_camera=make_camera,
         SP=SP, N=N, TC=TC, CM=CM, cuda_build=cuda_build,
         GaussianModel=GaussianModel, render_dense=render_dense,
         sorted_records=sorted_records, make_colmap_scene=make_colmap_scene,
@@ -2180,11 +2211,20 @@ def main() -> int:
         del g_img
         torch.cuda.empty_cache()
 
-    # -- G1 at the training benchmark's pool: the KNN init among 3x as many
-    # free slots, 256 pairs per gaussian
-    g1_rows = [g1_kernel(torch, M, init_from_points(
+    # -- G1 at the treehill_3dgs train cell's pool (the KNN init among 3x
+    # as many free slots, 256 pairs per gaussian), then at the
+    # treehill_3dgs_30k cell's 3.1M gaussians (16 pairs per gaussian)
+    g1_rows = [g1_kernel(torch, M, "train_cell", init_from_points(
         xyz, rgb, scale_init=None, opacity=0.9, capacity=4 * len(xyz),
-        device="cuda"), cam, card)]
+        device="cuda"), cam, RasterizerConfig(
+            pairs_per_gaussian=256, group_tiles=16, groups_per_step=16),
+        card)]
+    torch.cuda.empty_cache()
+    g1_rows.append(g1_kernel(torch, M, "30k", *scene_30k(M),
+                             RasterizerConfig(pairs_per_gaussian=16,
+                                              group_tiles=16,
+                                              groups_per_step=16,
+                                              cov2d_dilation=0.3), card))
     torch.cuda.empty_cache()
 
     # -- J1 and J2 at both cells' shapes

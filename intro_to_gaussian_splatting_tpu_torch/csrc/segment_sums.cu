@@ -7,24 +7,36 @@
 // two-level running sum over the whole pair pool. The port's plain version
 // (`gather_pairs_backward_reference`) does the same with library calls: a
 // 10-row gather, a scatter to emission order, a pad and two scans over all
-// MP slots. G1 computes the same function over the emitted pairs alone:
-//     d[r, i] = sum over e in [lo[i], hi[i]) of g[r, s(e)]
+// MP slots, then a scatter to the gaussians' order. G1 computes the same
+// function over the emitted pairs alone, in the gaussians' own order:
+//     d[r, order[i]] = sum over e in [lo[i], hi[i]) of g[r, s(e)]
 // for the 10 record rows that carry a pair gradient (0-5, 11-14), and
 // exact zeros in the other 6 rows and for gaussians with no pairs. g is
 // the (16, MP) gradient of the records in sorted-pair order, as the
-// rasterizer backward writes it; [lo[i], hi[i]) is depth rank i's block of
-// emission slots; s(e) is the sorted slot of emission slot e, the inverse
-// of the tile sort's permutation over the emitted prefix (perm[s] = e for
-// s < total_emit: the sort is stable and sentinel keys sort last, so
-// perm[:total_emit] is a permutation of [0, total_emit)).
+// rasterizer backward writes it; order is the depth argsort, a permutation
+// of [0, n): depth rank i is gaussian order[i]; [lo[i], hi[i]) is depth
+// rank i's block of emission slots; s(e) is the sorted slot of emission
+// slot e, the inverse of the tile sort's permutation over the emitted
+// prefix (perm[s] = e for s < total_emit: the sort is stable and sentinel
+// keys sort last, so perm[:total_emit] is a permutation of [0,
+// total_emit)).
+//
+// Why the gaussians' order: the records are gathered by order and then by
+// the pairs' ranks inside one autograd node, so autograd never
+// differentiates `records[:, order]` on its own. Its backward was
+// PyTorch's accumulating index_put_ (a fill, a sort of the indices and
+// `indexing_backward_kernel`), 14.9 ms a step at 3.1M gaussians, for a
+// permutation whose gradient has one term per target. G1 writes each sum
+// straight to its gaussian: the same values, taken in the same order.
 //
 // What bounds it on an H100: bytes. The function reads the 10 gradient
 // rows of the emitted slots, 40 B a pair, and perm, 8 B a pair; per
-// gaussian it reads lo and hi and writes 16 floats: about 1.4 GB at the
-// training benchmark's 29M pairs, 0.42 ms at 3.35 TB/s. The order of the
-// reads is the hard part: a gaussian's pairs lie one per tile, far apart
-// in sorted order and in 10 rows, so summing them where they lie reads
-// one 32-byte sector for each 4-byte value. A first design did just
+// gaussian it reads order, lo and hi and writes 16 floats: about 1.4 GB at
+// the training benchmark's 29M pairs, 0.42 ms at 3.35 TB/s (1.6 GB, 0.47
+// ms, at 27.2M pairs of 3.1M gaussians). The order of
+// the reads is the hard part: a gaussian's pairs lie one per tile, far
+// apart in sorted order and in 10 rows, so summing them where they lie
+// reads one 32-byte sector for each 4-byte value. A first design did just
 // that (one warp per gaussian reading through the inverse permutation,
 // gaussians in depth order for L2 reuse): 8.45 ms at 29M pairs, about
 // 1.1 TB/s of sectors (PERF.md).
@@ -41,11 +53,22 @@
 // lo + l / 4, lo + l / 4 + 8, ... in order, the lanes of one column group
 // are added with xor shuffles at offsets 16, 8, 4, and lane r writes row
 // r. Pass bytes: 48 B a pair read and 64 B written by the first, 64 B
-// read by the second. One algorithm serves every pair count, from about
-// one pair per gaussian to max_span^2. Every sum is taken in an order
-// fixed by the gaussian's own pair count, with no float atomics, so the
-// gradient is the same bit for bit from run to run and whatever the
-// pool's size.
+// read by the second.
+//
+// The output order. The second pass's warps walk the gaussians, not the
+// depth ranks: warp j writes column j, so a block's eight warps fill each
+// of the 16 rows' 32-byte sectors whole, as a rank-ordered output did. A
+// first kernel hands each gaussian its block, blocks[order[i]] = (lo[i],
+// hi[i]) as two ints, N scattered 8-byte stores, and the second pass reads
+// them in order. At 3.1M gaussians and 27.2M pairs (PERF.md) G1 takes
+// about 2.67 ms against 2.59 when it wrote by rank; warps by rank writing
+// column order[i] (16 scattered 4-byte stores a gaussian) took 5.40, and
+// warps by gaussian reading lo and hi through the inverse order 2.85.
+//
+// One algorithm serves every pair count, from about one pair per gaussian
+// to max_span^2. Every sum is taken in an order fixed by the gaussian's own
+// pair count, with no float atomics, so the gradient is the same bit for
+// bit from run to run and whatever the pool's size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,16 +122,28 @@ to_emission_kernel(const float* __restrict__ g, int64_t mp,
   scratch[e * (kPairFloats / 4) + quad] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// each depth rank's block to its gaussian: blocks[order[i]] = (lo, hi);
+// order is a permutation, so every gaussian's block is written once
+__global__ void __launch_bounds__(kScatterThreads)
+blocks_by_gaussian_kernel(const int64_t* __restrict__ order,
+                          const int64_t* __restrict__ lo,
+                          const int64_t* __restrict__ hi, int n,
+                          int2* __restrict__ blocks) {
+  const int i = blockIdx.x * kScatterThreads + threadIdx.x;
+  if (i >= n) return;
+  blocks[order[i]] = make_int2((int)lo[i], (int)hi[i]);
+}
+
 // pass 2: one warp per gaussian sums its contiguous run of the scratch
 __global__ void __launch_bounds__(kThreads)
 segment_sums_kernel(const float4* __restrict__ scratch,
-                    const int64_t* __restrict__ lo,
-                    const int64_t* __restrict__ hi, int n,
+                    const int2* __restrict__ blocks, int n,
                     float* __restrict__ d) {
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= n) return;  // the whole warp: i is the warp's
-  const int first = (int)lo[i], end = (int)hi[i];
+  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (j >= n) return;  // the whole warp: j is the warp's
+  const int2 block = blocks[j];
+  const int first = block.x, end = block.y;
   const int quad = lane & 3;  // columns 4 * quad .. 4 * quad + 3
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 4
@@ -136,7 +171,7 @@ segment_sums_kernel(const float4* __restrict__ scratch,
   if (lane < kRows) {
     const int c = k & 3;
     const float v = k < 0 ? 0.0f : c == 0 ? x : c == 1 ? y : c == 2 ? z : w;
-    d[(int64_t)lane * n + i] = v;
+    d[(int64_t)lane * n + j] = v;
   }
 }
 
@@ -144,15 +179,18 @@ segment_sums_kernel(const float4* __restrict__ scratch,
 
 extern "C" {
 
-// g (16, mp) f32 in sorted-pair order; perm (mp,) int64, the tile sort's
+// g (16, mp) f32 in sorted-pair order; order (n,) int64, the depth
+// argsort, a permutation of [0, n); perm (mp,) int64, the tile sort's
 // permutation (sorted slot s came from emission slot perm[s]); lo, hi
-// (n,) int64 emission blocks within [0, total_emit]; scratch
-// (total_emit, 16) f32, 16-byte aligned -> d (16, n) f32. total_emit <=
-// mp <= 2^31 - 32; the wrapper checks shapes, types and devices.
-int segment_sums(const float* g, long long mp, const int64_t* perm,
-                 const int64_t* lo, const int64_t* hi, int n, int total_emit,
-                 int grad_rows_mask, float* scratch, float* d, int device,
-                 void* stream) {
+// (n,) int64 emission blocks of the depth ranks within [0, total_emit];
+// scratch (total_emit, 16) f32, 16-byte aligned; blocks (n, 2) int32
+// scratch, 8-byte aligned -> d (16, n) f32 in the gaussians' order.
+// total_emit <= mp <= 2^31 - 32; the wrapper checks shapes, types and
+// devices.
+int segment_sums(const float* g, long long mp, const int64_t* order,
+                 const int64_t* perm, const int64_t* lo, const int64_t* hi,
+                 int n, int total_emit, int grad_rows_mask, float* scratch,
+                 int* blocks, float* d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (grad_rows_mask != kGradRowsMask || total_emit < 0 || n < 0 ||
@@ -166,9 +204,14 @@ int segment_sums(const float* g, long long mp, const int64_t* perm,
                                     kScatterThreads),
                          kScatterThreads, 0, st>>>(g, (int64_t)mp, perm,
                                                    total_emit, pairs);
-  if (n > 0)
+  if (n > 0) {
+    int2* by_gaussian = reinterpret_cast<int2*>(blocks);
+    blocks_by_gaussian_kernel<<<(n + kScatterThreads - 1) / kScatterThreads,
+                                kScatterThreads, 0, st>>>(order, lo, hi, n,
+                                                          by_gaussian);
     segment_sums_kernel<<<(n + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-        pairs, lo, hi, n, d);
+        pairs, by_gaussian, n, d);
+  }
   return (int)cudaGetLastError();
 }
 

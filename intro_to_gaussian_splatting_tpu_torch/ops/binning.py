@@ -12,7 +12,9 @@
   6. per-tile [start, count) and per-group starts by binary search of the
      sorted keys;
   7. gather the records into pair order, feature-major (16, MP), with
-     means and bboxes in the owning tile's local pixel frame.
+     means and bboxes in the owning tile's local pixel frame: first by
+     the depth order, then by each pair's depth rank, both inside one
+     autograd node, ``_GatherPairs``.
 
 Steps 1-3 (per gaussian) run in the span ``order`` and steps 4-7 (per
 pair slot) in the span ``pairs``, both inside the caller's ``bin``.
@@ -28,6 +30,15 @@ sums each gaussian's contiguous run; on the CPU the plain version,
 ``_gather_pairs_fm`` VJP does: it puts the pair gradients back in emission
 order and takes each block's sum as a difference of a two-level running
 sum. Either way the gradient is the same bit for bit from run to run.
+
+Both write depth rank i's sums to gaussian ``order[i]``, so the gradient
+comes out in the gaussians' own order. The depth order is a permutation,
+so each gaussian gets one sum and nothing is added. Left to autograd,
+``records[:, order]`` would take PyTorch's accumulating index backward (a
+fill, a sort of the indices and a scatter-add), the largest device
+operation of a training step at 3.1M gaussians (PERF.md); inside
+``_GatherPairs`` it costs G1 one scatter of each rank's block to its
+gaussian.
 
 The pair pool is ``round_up(pairs_per_gaussian * N, chunk_size)`` slots plus
 one trailing chunk of sentinel-keyed slots, as in the JAX package. Above 4M
@@ -77,8 +88,9 @@ class TileBins:
 SEGMENT_SUMS_SOURCE = KernelSource("segment_sums", ("-fmad=false",))
 SEGMENT_SUMS = CudaKernel(SEGMENT_SUMS_SOURCE, "segment_sums", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
 ])
 GRAD_ROWS_MASK = sum(1 << r for r in P.GRAD_ROWS)
 MAX_SLOTS = 2 ** 31 - 32   # G1 indexes pair slots in 32 bits
@@ -139,13 +151,14 @@ def _segment_sums(g_em: torch.Tensor, lo: torch.Tensor,
 
 
 class _GatherPairs(torch.autograd.Function):
-    """records_rank (16, N) -> (16, MP) in sorted pair order, localized to
-    each pair's tile; the backward sums pair gradients per gaussian."""
+    """records (16, N) in the gaussians' order -> (16, MP) in sorted pair
+    order, localized to each pair's tile; the backward sums pair gradients
+    per gaussian, in the gaussians' order."""
 
     @staticmethod
-    def forward(ctx, records_rank, sorted_rank, perm, sorted_keys, valid,
+    def forward(ctx, records, order, sorted_rank, perm, sorted_keys, valid,
                 lo, hi, ntx, ts, total_emit):
-        out = records_rank[:, sorted_rank]
+        out = records[:, order][:, sorted_rank]
         zero = torch.zeros((), dtype=sorted_keys.dtype,
                            device=sorted_keys.device)
         for rows, origin in (
@@ -156,27 +169,27 @@ class _GatherPairs(torch.autograd.Function):
             for row in rows:
                 out[row] -= shift
         out[P.REC_TILE] = sorted_keys.to(torch.float32)
-        ctx.save_for_backward(perm, lo, hi)
-        ctx.n = records_rank.shape[1]
+        ctx.save_for_backward(order, perm, lo, hi)
         ctx.total_emit = total_emit
         return out
 
     @staticmethod
     def backward(ctx, g):
-        perm, lo, hi = ctx.saved_tensors
-        d = gather_pairs_backward(g.contiguous(), perm, lo, hi, ctx.n,
+        order, perm, lo, hi = ctx.saved_tensors
+        d = gather_pairs_backward(g.contiguous(), order, perm, lo, hi,
                                   ctx.total_emit)
-        return d, None, None, None, None, None, None, None, None, None
+        return (d,) + (None,) * 10
 
 
-def gather_pairs_backward_reference(g: torch.Tensor, perm: torch.Tensor,
-                                    lo: torch.Tensor, hi: torch.Tensor,
-                                    n: int) -> torch.Tensor:
-    """The gather's gradient (16, N) from the records' (16, MP) gradient
-    ``g`` in sorted-pair order: per gaussian the sums of its emission block
-    [lo, hi) in the gradient rows, zeros in the others. The plain version
-    of kernel G1, run on the CPU; on the card it is the library chain that
-    G1 replaced."""
+def gather_pairs_backward_reference(g: torch.Tensor, order: torch.Tensor,
+                                    perm: torch.Tensor, lo: torch.Tensor,
+                                    hi: torch.Tensor) -> torch.Tensor:
+    """The gather's gradient (16, N), in the gaussians' order, from the
+    records' (16, MP) gradient ``g`` in sorted-pair order: for gaussian
+    ``order[i]`` the sums of depth rank i's emission block [lo[i], hi[i])
+    in the gradient rows, zeros in the others. The plain version of kernel
+    G1, run on the CPU; on the card it is the library chain that G1
+    replaced."""
     # only these rows carry pair gradients back to the gaussians
     rows = torch.as_tensor(P.GRAD_ROWS, device=g.device)
     g_rows = g[rows]                                     # (10, MP)
@@ -185,19 +198,24 @@ def gather_pairs_backward_reference(g: torch.Tensor, perm: torch.Tensor,
     g_em = torch.empty_like(g_rows)
     g_em[:, perm] = g_rows
     del g_rows
-    d = torch.zeros((P.NUM_REC_ROWS, n), dtype=g.dtype, device=g.device)
-    d[rows] = _segment_sums(g_em, lo, hi)
+    # rank i's sums to gaussian order[i]: a permutation, so the scatter
+    # is exact
+    d = torch.zeros((P.NUM_REC_ROWS, order.shape[0]), dtype=g.dtype,
+                    device=g.device)
+    d[rows[:, None], order] = _segment_sums(g_em, lo, hi)
     return d
 
 
-def _gather_pairs_backward_cuda(g, perm, lo, hi, n, total_emit):
+def _gather_pairs_backward_cuda(g, order, perm, lo, hi, total_emit):
     dev = g.device
     mp = g.shape[1] if g.dim() == 2 else -1
+    n = order.shape[0] if order.dim() == 1 else -1
     if (g.shape != (P.NUM_REC_ROWS, mp) or g.dtype != torch.float32
             or not g.is_contiguous()):
         raise ValueError(f"G1 takes a contiguous float32 ({P.NUM_REC_ROWS}, "
                          f"MP) gradient, got {g.dtype} {tuple(g.shape)}")
-    for name, t, size in (("perm", perm, mp), ("lo", lo, n), ("hi", hi, n)):
+    for name, t, size in (("order", order, n), ("perm", perm, mp),
+                          ("lo", lo, n), ("hi", hi, n)):
         if (t.shape != (size,) or t.dtype != torch.int64
                 or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name} must be a contiguous int64 ({size},) "
@@ -207,24 +225,31 @@ def _gather_pairs_backward_cuda(g, perm, lo, hi, n, total_emit):
                          f"got total_emit {total_emit}, MP {mp}")
     # each emitted pair's gradient as one 64-byte record, in emission order
     scratch = torch.empty((total_emit, 16), dtype=torch.float32, device=dev)
+    # each gaussian's emission block [lo, hi), moved out of depth order
+    blocks = torch.empty((n, 2), dtype=torch.int32, device=dev)
     d = torch.empty((P.NUM_REC_ROWS, n), dtype=torch.float32, device=dev)
     SEGMENT_SUMS.launch(
-        g.data_ptr(), mp, perm.data_ptr(), lo.data_ptr(), hi.data_ptr(), n,
-        total_emit, GRAD_ROWS_MASK, scratch.data_ptr(), d.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        g.data_ptr(), mp, order.data_ptr(), perm.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), n, total_emit, GRAD_ROWS_MASK, scratch.data_ptr(),
+        blocks.data_ptr(), d.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     return d
 
 
-def gather_pairs_backward(g: torch.Tensor, perm: torch.Tensor,
-                          lo: torch.Tensor, hi: torch.Tensor, n: int,
-                          total_emit: int) -> torch.Tensor:
+def gather_pairs_backward(g: torch.Tensor, order: torch.Tensor,
+                          perm: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, total_emit: int) -> torch.Tensor:
     """``gather_pairs_backward_reference``'s function through kernel G1 for
     a gradient on the card, the plain version for one on the CPU.
+    ``order`` must be a permutation of the N gaussians (the depth argsort):
+    G1 reads each gaussian's block where ``order`` wrote it, and reads
+    blocks that were never written for any other ``order``;
     ``total_emit`` is the emitted prefix of the sorted pairs, which holds
     every block: perm[:total_emit] is a permutation of [0, total_emit)."""
     if g.is_cuda:
-        return _gather_pairs_backward_cuda(g, perm, lo, hi, n, total_emit)
-    return gather_pairs_backward_reference(g, perm, lo, hi, n)
+        return _gather_pairs_backward_cuda(g, order, perm, lo, hi,
+                                           total_emit)
+    return gather_pairs_backward_reference(g, order, perm, lo, hi)
 
 
 def bin_gaussians(
@@ -318,14 +343,14 @@ def bin_gaussians(
             torch.arange(num_groups + 1, dtype=i64, device=dev) * gt)
 
         # 7. gather records into pair order (differentiable), feature-major,
-        # with means/bboxes in the owning tile's local frame
-        records_rank = pack_records(proj)[:, order]             # (16, N)
-        total_t = torch.as_tensor(total_emit, device=dev)
-        lo = torch.minimum(starts, total_t)
-        hi = torch.minimum(ends, total_t)
-        pair_records = _GatherPairs.apply(records_rank, sorted_rank, perm,
-                                          sorted_keys, pair_valid, lo, hi, ntx,
-                                          ts, total_emit)
+        # with means/bboxes in the owning tile's local frame; the depth
+        # order's gather is inside the node, so its gradient is G1's
+        lo = starts.clamp(max=total_emit)
+        hi = ends.clamp(max=total_emit)
+        pair_records = _GatherPairs.apply(pack_records(proj), order,
+                                          sorted_rank, perm, sorted_keys,
+                                          pair_valid, lo, hi, ntx, ts,
+                                          total_emit)
         del perm
 
     return TileBins(

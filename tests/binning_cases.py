@@ -32,12 +32,15 @@ def config(case, config_cls, compat_cls):
     return config_cls(**fields)
 
 
-def emission_sums(g, perm, lo, hi, total):
+def emission_sums(g, order, perm, lo, hi, total):
     """The gather's gradient in float64: the (16, MP) sorted-order ``g``
-    moved to emission order through the tile sort's ``perm`` and each
-    block [lo, hi) summed, (16, N), in every row."""
+    moved to emission order through the tile sort's ``perm``, each depth
+    rank i's block [lo[i], hi[i]) summed and written to gaussian
+    ``order[i]``, (16, N), in every row."""
     inv = torch.empty(total, dtype=torch.int64, device=g.device)
     inv[perm[:total]] = torch.arange(total, device=g.device)
     cum = torch.nn.functional.pad(torch.cumsum(g[:, inv].double(), dim=1),
                                   (1, 0))
-    return cum[:, hi] - cum[:, lo]
+    sums = torch.empty_like(cum[:, hi])
+    sums[:, order] = cum[:, hi] - cum[:, lo]
+    return sums

@@ -5,7 +5,10 @@ overflowed, pair_rank, pair_valid); pair_records within atol 1e-6. On the
 CPU the gather's backward is the plain version (the two-level running sum
 of ``_segment_sums``), held against the JAX package's gather VJP; the
 invariant that kernel G1 relies on on the card (the emitted prefix of the
-tile sort is a permutation of itself) holds in every case.
+tile sort is a permutation of itself) holds in every case. The depth
+order's gather lies inside the gather's autograd node, so no index
+backward of PyTorch's runs, and the gradient is the one autograd gave
+through ``records[:, order]`` bit for bit.
 """
 
 import dataclasses
@@ -96,15 +99,18 @@ def _port_bins(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_emitted_prefix_is_a_permutation(case):
-    """What G1 relies on: the tile sort's perm[:total_emit] is a
-    permutation of [0, total_emit), every sorted slot from total_emit on
-    holds the sentinel key, and every block [lo, hi) lies in the prefix.
-    G1's function, the emitted gradients moved to emission order and each
-    block summed, is then the plain version's."""
+    """What G1 relies on: the depth order is a permutation of the
+    gaussians, the tile sort's perm[:total_emit] is a permutation of [0,
+    total_emit), every sorted slot from total_emit on holds the sentinel
+    key, and every block [lo, hi) lies in the prefix. G1's function, the
+    emitted gradients moved to emission order, each block summed and
+    written to its gaussian, is then the plain version's."""
     _, _, bins, node, cfg, cam = _port_bins(case)
-    perm, lo, hi = node.saved_tensors
+    order, perm, lo, hi = node.saved_tensors
     total = node.total_emit
     mp = bins.pair_records.shape[1]
+    n = lo.shape[0]
+    assert torch.equal(torch.sort(order).values, torch.arange(n))
     assert perm.shape == (mp,) and 0 < total < mp
     assert torch.equal(torch.sort(perm[:total]).values, torch.arange(total))
     ntx, nty = tb.tile_grid(cam.width, cam.height, cfg.tile_size)
@@ -117,10 +123,10 @@ def test_emitted_prefix_is_a_permutation(case):
     # G1's function in float64
     g = torch.randn((tp.NUM_REC_ROWS, mp),
                     generator=torch.Generator().manual_seed(4))
-    want = binning_cases.emission_sums(g, perm, lo, hi, total)
+    want = binning_cases.emission_sums(g, order, perm, lo, hi, total)
     others = [r for r in range(tp.NUM_REC_ROWS) if r not in tp.GRAD_ROWS]
     want[others] = 0.0
-    got = tb.gather_pairs_backward_reference(g, perm, lo, hi, lo.shape[0])
+    got = tb.gather_pairs_backward_reference(g, order, perm, lo, hi)
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5)
 
 
@@ -165,3 +171,47 @@ def test_gather_backward_on_cpu_matches_jax_vjp(case, monkeypatch):
     for f, g in zip(GRAD_FIELDS, got):
         np.testing.assert_allclose(np_(g), np.asarray(want[f]), rtol=1e-5,
                                    atol=5e-5, err_msg=f)
+
+
+def _node_names(fn):
+    """The class names of every node of the autograd graph below ``fn``."""
+    names, seen, stack = set(), set(), [fn]
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        names.add(type(f).__name__)
+        stack.extend(nxt for nxt, _ in f.next_functions)
+    return names
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_backward_has_no_index_backward(case):
+    """The depth order's gather lies inside ``_GatherPairs``: no
+    ``IndexBackward0`` between the pair records and the projection's
+    leaves, and the gradient to those leaves is, bit for bit, that of
+    autograd through ``pack_records(proj)[:, order]`` fed the gather's
+    gradient in depth-rank order (the emitted pair gradients moved to
+    emission order and each rank's block summed, rebuilt here)."""
+    proj, leaves, bins, node, _, _ = _port_bins(case)
+    assert "IndexBackward0" not in _node_names(bins.pair_records.grad_fn)
+    order, perm, lo, hi = node.saved_tensors
+    rng = np.random.default_rng(7)
+    w = np.zeros(tuple(bins.pair_records.shape), np.float32)
+    w[list(tp.GRAD_ROWS)] = rng.normal(size=(len(tp.GRAD_ROWS),
+                                             w.shape[1]))
+    w = torch.from_numpy(w)
+    got = torch.autograd.grad(bins.pair_records, list(leaves.values()), w)
+
+    rows = list(tp.GRAD_ROWS)
+    g_em = torch.empty_like(w[rows])
+    g_em[:, perm] = w[rows]
+    d_rank = torch.zeros((tp.NUM_REC_ROWS, lo.shape[0]))
+    d_rank[rows] = tb._segment_sums(g_em, lo, hi)
+    records_rank = tp.pack_records(dataclasses.replace(
+        port_projection(proj), **leaves))[:, order]
+    assert "IndexBackward0" in _node_names(records_rank.grad_fn)
+    want = torch.autograd.grad(records_rank, list(leaves.values()), d_rank)
+    for f, a, b in zip(GRAD_FIELDS, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)

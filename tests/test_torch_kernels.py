@@ -19,7 +19,8 @@ B4a and B4b, value rel 1e-6 and gradient relative L2 1e-5; the relayouts
 and P1 exactly equal; P2 relative L2 1e-6 (its three payload sums taken
 in another order); G1 relative L2 1e-5 against its plain version (direct
 sums against differences of running sums), and no further than it from
-the float64 sums; J1 equal to its plain version but for the fields and
+the float64 sums, its columns in the gaussians' order bit for bit those of
+its depth-rank order; J1 equal to its plain version but for the fields and
 ulps that ``test_projection_kernels_match_plain_on_card`` names, J2 within
 relative L2 1e-5 of autograd through the plain version (the same chain
 rule, its terms added in another order). Every kernel's output is the same
@@ -605,11 +606,28 @@ def test_train_step_gradients_on_card(cuda_device):
         assert torch.equal(grads[name], grads2[name]), name
 
 
+# G1's cases: the binning cases, and the default scene with its gaussians
+# stored far to near, so that the depth order reverses the index order
+G1_CASES = {**{case: (case, False) for case in binning_cases.CASES},
+            "reversed_depth": ("default", True)}
+
+
+def _far_to_near(proj):
+    """``proj`` with its gaussians stored far to near, the invalid ones
+    first: the depth order then reverses the valid ones' indices."""
+    key = torch.where(proj.valid, proj.depth, float("inf"))
+    idx = torch.argsort(key, descending=True, stable=True)
+    return dataclasses.replace(proj, **{
+        f.name: getattr(proj, f.name)[idx]
+        for f in dataclasses.fields(proj)})
+
+
 def _g1_bins(case, device, pairs_per_gaussian=None):
-    """The scene of ``binning_cases.CASES[case]`` made and binned on
-    ``device`` (at ``pairs_per_gaussian`` if given), the projection's
-    gradient fields as leaves: (leaves, bins, the gather's autograd node,
-    which holds perm, lo, hi and total_emit)."""
+    """The scene of ``G1_CASES[case]`` made and binned on ``device`` (at
+    ``pairs_per_gaussian`` if given), the projection's gradient fields as
+    leaves: (leaves, bins, the gather's autograd node, which holds order,
+    perm, lo, hi and total_emit)."""
+    case, reverse = G1_CASES[case]
     kw, _ = binning_cases.CASES[case]
     kw = dict(kw)
     scales = (kw.pop("scale_lo", 0.02), kw.pop("scale_hi", 0.25))
@@ -619,6 +637,8 @@ def _g1_bins(case, device, pairs_per_gaussian=None):
     model, cam = _scene(device, scales=scales, **kw)
     with torch.no_grad():
         proj = project_gaussians(model, cam, cfg)
+        if reverse:
+            proj = _far_to_near(proj)
     leaves = {f: getattr(proj, f).requires_grad_(True)
               for f in ("mean2d", "conic", "opacity", "color", "depth")}
     bins = bin_gaussians(dataclasses.replace(proj, **leaves), cam.width,
@@ -627,7 +647,7 @@ def _g1_bins(case, device, pairs_per_gaussian=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(binning_cases.CASES))
+@pytest.mark.parametrize("case", sorted(G1_CASES))
 def test_g1_kernel_matches_plain_on_card(case, cuda_device):
     """G1, the gather's backward, against the float64 block sums and its
     plain version (the library chain) on the card: no further from the
@@ -635,46 +655,62 @@ def test_g1_kernel_matches_plain_on_card(case, cuda_device):
     1e-5 of it, exact zeros outside the gradient rows and for gaussians
     with no pairs (``overflow`` drops whole ones), bit for bit the same on
     repeat and for the same pairs in a pool twice the size, one launch per
-    backward pass. The cotangent holds values in every row and in the
-    sentinel slots, which G1 never reads."""
+    backward pass. Column order[i] holds depth rank i's sums, bit for bit
+    those that G1 writes to column i given the identity order, for the
+    scene's order and for its reverse. The cotangent holds values in every
+    row and in the sentinel slots, which G1 never reads."""
     leaves, bins, node = _g1_bins(case, cuda_device)
-    perm, lo, hi = node.saved_tensors
+    order, perm, lo, hi = node.saved_tensors
     total, n, mp = node.total_emit, lo.shape[0], perm.shape[0]
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     g = torch.randn((16, mp), generator=gen, device=cuda_device)
-    d = tb.gather_pairs_backward(g, perm, lo, hi, n, total)
-    plain = tb.gather_pairs_backward_reference(g, perm, lo, hi, n)
-    exact = binning_cases.emission_sums(g, perm, lo, hi, total)
+    d = tb.gather_pairs_backward(g, order, perm, lo, hi, total)
+    plain = tb.gather_pairs_backward_reference(g, order, perm, lo, hi)
+    exact = binning_cases.emission_sums(g, order, perm, lo, hi, total)
     rows = list(GRAD_ROWS)
     err = rel_l2(d[rows], exact[rows])
     assert err <= max(rel_l2(plain[rows], exact[rows]), 1e-6), err
     assert rel_l2(d, plain) <= 1e-5
     others = [r for r in range(16) if r not in GRAD_ROWS]
-    assert not d[others].any() and not d[:, lo == hi].any()
+    assert not d[others].any() and not d[:, order[lo == hi]].any()
     if case == "overflow":
         assert bool((lo == hi).any())
     if case == "wide":      # lanes walk more than one pair each
         assert int((hi - lo).max()) > 64
-    assert torch.equal(d, tb.gather_pairs_backward(g, perm, lo, hi, n,
+    if case == "reversed_depth":
+        valid = int((hi > lo).sum())
+        assert valid > 100 and torch.equal(
+            order[:valid], torch.arange(n - 1, n - 1 - valid, -1,
+                                        device=cuda_device))
+    assert torch.equal(d, tb.gather_pairs_backward(g, order, perm, lo, hi,
                                                    total))
+    # column for column through the order
+    ident = torch.arange(n, device=cuda_device)
+    by_rank = tb.gather_pairs_backward(g, ident, perm, lo, hi, total)
+    assert torch.equal(d[:, order], by_rank)
+    flip = ident.flip(0)
+    assert torch.equal(
+        tb.gather_pairs_backward(g, flip, perm, lo, hi, total)[:, flip],
+        by_rank)
 
     # the same pairs in a larger pool: each emission slot's gradient the
     # same values, wherever the sort puts it
     g_em = torch.randn((16, 2 * mp), generator=gen, device=cuda_device)
     sums = []
-    ppg = binning_cases.CASES[case][1]["pairs_per_gaussian"]
+    ppg = binning_cases.CASES[G1_CASES[case][0]][1]["pairs_per_gaussian"]
     for pool_ppg in (ppg, 2 * ppg):
         _, b, nd = _g1_bins(case, cuda_device, pool_ppg)
-        p, l, h = nd.saved_tensors
+        o, p, l, h = nd.saved_tensors
         gp = torch.randn((16, p.shape[0]), generator=gen, device=cuda_device)
         gp[:, :nd.total_emit] = g_em[:, p[:nd.total_emit]]
-        sums.append((tb.gather_pairs_backward(gp, p, l, h, n, nd.total_emit),
-                     l, h, b.pair_records.shape[1]))
-    (d1, l1, h1, mp1), (d2, l2, h2, mp2) = sums
+        sums.append((tb.gather_pairs_backward(gp, o, p, l, h,
+                                              nd.total_emit),
+                     o, l, h, b.pair_records.shape[1]))
+    (d1, o1, l1, h1, mp1), (d2, o2, l2, h2, mp2) = sums
     same = (l1 == l2) & (h1 == h2)
-    assert mp2 > mp1 and bool(same.any())
+    assert mp2 > mp1 and bool(same.any()) and torch.equal(o1, o2)
     assert bool(same.all()) or case == "overflow"
-    assert torch.equal(d1[:, same], d2[:, same])
+    assert torch.equal(d1[:, o1[same]], d2[:, o2[same]])
 
     # through autograd: one launch per backward pass, bit for bit equal
     before = tb.SEGMENT_SUMS.launches
